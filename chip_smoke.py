@@ -1,0 +1,588 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``legged_gym_dev_tpu_torch``).
+
+Runs on one CUDA card (an H100 for the recorded numbers):
+
+1. builds the port's CUDA kernels from ``legged_gym_dev_tpu_torch/csrc``;
+2. prints the card's name and power limit (``nvidia-smi``);
+3. kernel phase: holds each kernel against its plain PyTorch version on
+   random well-conditioned SPD block-tridiagonal systems at the main
+   path's shapes (S=51, b=5; B=2048 single-RHS, B=1024 with R=50 and
+   B=2048 with R=51 multi-RHS) and times kernel, plain version and a
+   library yardstick (``torch.linalg.solve`` / ``cholesky`` /
+   ``cholesky_solve`` on the assembled banded system; the port never
+   calls these);
+4. main path, through the port's entry points, on bench.py's randomised
+   ``gap`` batch: l1 at B=2048 and NN_oneshot (130->128->128->50 softplus
+   MLP, random weights from a seed) at B=1024, N=50, with the
+   ``certify_staged_batched`` verdicts, then a short closed loop at
+   B=1024; the launch counters are zeroed before and read after;
+5. a small-input reference check: the same solve on the card (kernels)
+   and on the CPU (plain versions) must agree;
+6. a ``torch.profiler`` window of each mode: device busy share and the
+   kernels with the most device time;
+7. prints one ``{"kernels": [...]}`` line, then, last,
+   ``{"ok": true, "device": {...}}``.
+
+Any failed check raises, so the script exits non-zero and prints no
+result line. Without a CUDA device it exits non-zero at once.
+
+Usage: ``python3 chip_smoke.py`` (all phases), or
+``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
+debugging (phases: kernels, l1, nn, loop, ref, profile).
+"""
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile")
+N, H_REV = 50, 10
+B_L1, B_NN = 2048, 1024
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+SOURCE = "legged_gym_dev_tpu_torch/csrc/block_tridiag.cu"
+REPLACES = {
+    "bt_solve": "legged_gym_dev_tpu/ops/pallas_block_tridiag.py:182",
+    "bt_factor": "legged_gym_dev_tpu/ops/pallas_block_tridiag.py:463",
+    "bt_msolve": "legged_gym_dev_tpu/ops/pallas_block_tridiag.py:481",
+}
+TOL_REL = 1e-4   # kernel vs plain version: max |diff| / max |plain|
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# work counts for the bound (each input read once, each output written once)
+# ---------------------------------------------------------------------------
+
+def _chol_ops(b):
+    return sum(2 * j * (b - j) + 3 + (b - j) for j in range(b))
+
+
+def _cho_solve_ops(b):
+    return 2 * b * b
+
+
+def _factor_ops(S, b):
+    nl = b * (b + 1) // 2
+    per_stage = b * _cho_solve_ops(b) + nl * 2 * b + _chol_ops(b)
+    return _chol_ops(b) + (S - 1) * per_stage
+
+
+def _subst_ops(S, b):
+    fwd = S * _cho_solve_ops(b) + (S - 1) * 2 * b * b
+    bwd = (S - 1) * (2 * b * b + _cho_solve_ops(b) + b)
+    return fwd + bwd
+
+
+def work(kernel, S, b, B, R=1):
+    """(bytes, operations) of one call at these shapes, fp32."""
+    nl = b * (b + 1) // 2
+    D, L = 4 * B * S * nl, 4 * B * (S - 1) * b * b
+    if kernel == "bt_solve":
+        return D + L + 2 * 4 * B * S * b, B * (_factor_ops(S, b)
+                                               + _subst_ops(S, b))
+    if kernel == "bt_factor":
+        return D + L + 4 * B * S * nl, B * _factor_ops(S, b)
+    return (4 * B * S * nl + L + 2 * 4 * B * S * b * R,
+            B * R * _subst_ops(S, b))
+
+
+def bound(kernel, S, b, B, R=1):
+    nbytes, ops = work(kernel, S, b, B, R)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, reps, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def spd_systems(B, S, b, R, seed, dev):
+    """Random well-conditioned SPD block-tridiagonal systems (numpy seed):
+    D = A A^T + (2+b) I, L = 0.3 N(0, 1)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, S, b, b)).astype(np.float32)
+    D = (np.einsum("bsij,bskj->bsik", A, A)
+         + (2.0 + b) * np.eye(b, dtype=np.float32)).astype(np.float32)
+    L = (0.3 * rng.normal(size=(B, S - 1, b, b))).astype(np.float32)
+    rhs = rng.normal(size=(B, S, b, R)).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=dev) for x in (D, L, rhs))
+
+
+def dense_system(D, L):
+    """The assembled (B, S*b, S*b) banded matrix (library yardstick)."""
+    import torch
+
+    B, S, b, _ = D.shape
+    K = torch.zeros(B, S * b, S * b, device=D.device)
+    for k in range(S):
+        K[:, k * b:(k + 1) * b, k * b:(k + 1) * b] = D[:, k]
+    for k in range(S - 1):
+        K[:, (k + 1) * b:(k + 2) * b, k * b:(k + 1) * b] = L[:, k]
+        K[:, k * b:(k + 1) * b, (k + 1) * b:(k + 2) * b] = \
+            L[:, k].transpose(-1, -2)
+    return K
+
+
+def errs(x, ref):
+    ax = float((x - ref).abs().max())
+    return ax, ax / max(float(ref.abs().max()), 1e-30)
+
+
+def kernel_phase(dev):
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+
+    S, b = N + 1, 5
+    rec = {}
+
+    def entries(D, L):
+        Df = [[D[:, :, i, j] for j in range(b)] for i in range(b)]
+        Lf = [[L[:, :, i, j] for j in range(b)] for i in range(b)]
+        return Df, Lf
+
+    # -- bt_solve through the entry-form wrapper (K1), B = 2048 and 1024
+    for B in (B_L1, B_NN):
+        D, L, rhs = spd_systems(B, S, b, 1, seed=B, dev=dev)
+        Df, Lf = entries(D, L)
+        r = [rhs[:, :, i, 0] for i in range(b)]
+        x = torch.stack(btk.block_tridiag_solve_entries(Df, Lf, r, b), -1)
+        x_pl = torch.stack(
+            btk.block_tridiag_solve_entries_plain(Df, Lf, r, b), -1)
+        torch.cuda.synchronize()
+        ax, rel = errs(x, x_pl)
+        print(f"[kernels] bt_solve entries B={B}: max_abs_err={ax:.3e} "
+              f"rel={rel:.3e}")
+        check(rel <= TOL_REL, f"bt_solve B={B} rel err {rel}")
+        if B != B_L1:
+            continue
+        ms = time_ms(lambda: btk.block_tridiag_solve_entries(Df, Lf, r, b),
+                     20)
+        Dt = btk._stage_major(btk._lower(Df, b), B, S, dev)
+        Lt = btk._stage_major(btk._flat(Lf, b), B, S - 1, dev)
+        rt = btk._stage_major(r, B, S, dev)
+        k_ms = time_ms(lambda: btk._launch_solve(Dt, Lt, rt, S, B, b), 20)
+        p_ms = time_ms(
+            lambda: btk.block_tridiag_solve_entries_plain(Df, Lf, r, b), 3,
+            warmup=1)
+        K = dense_system(D, L)
+        rhs_d = rhs[..., 0].reshape(B, S * b, 1)
+        lib_ms = time_ms(lambda: torch.linalg.solve(K, rhs_d), 5, warmup=1)
+        x_lib = torch.linalg.solve(K, rhs_d).reshape(B, S, b)
+        lib_ax, _ = errs(x, x_lib)
+        bms, by = bound("bt_solve", S, b, B)
+        print(f"[kernels] bt_solve B={B}: wrapper {ms:.4f} ms, kernel alone "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.linalg.solve "
+              f"{lib_ms:.4f} ms (|kernel-library|={lib_ax:.2e}), bound "
+              f"{bms:.4f} ms ({by})")
+        rec["bt_solve"] = dict(max_abs_err=ax, ms=ms, kernel_only_ms=k_ms,
+                               plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                               library_ms=lib_ms, shape=[B, S, b])
+        del K
+
+        # -- the array-form wrapper over the same kernel (K1b)
+        xb = btk.block_tridiag_solve(D, L, rhs[..., 0])
+        xb_pl = btk.block_tridiag_solve_plain(D, L, rhs[..., 0])
+        torch.cuda.synchronize()
+        ax_b, rel_b = errs(xb, xb_pl)
+        ms_b = time_ms(lambda: btk.block_tridiag_solve(D, L, rhs[..., 0]),
+                       20)
+        p_ms_b = time_ms(lambda: btk.block_tridiag_solve_plain(
+            D, L, rhs[..., 0]), 3, warmup=1)
+        print(f"[kernels] bt_solve array-form wrapper B={B}: "
+              f"max_abs_err={ax_b:.3e} rel={rel_b:.3e}, {ms_b:.4f} ms, "
+              f"plain {p_ms_b:.4f} ms")
+        check(rel_b <= TOL_REL, f"array-form bt_solve rel err {rel_b}")
+        rec["bt_solve"].update(array_wrapper_max_abs_err=ax_b,
+                               array_wrapper_ms=ms_b,
+                               array_wrapper_plain_ms=p_ms_b)
+
+    # -- bt_factor + bt_msolve (K2f, K2s): B=1024 R=50 (main path), then
+    #    B=2048 R=51 (parity and time)
+    for B, R in ((B_NN, N), (B_L1, N + 1)):
+        D, L, rhs = spd_systems(B, S, b, R, seed=B + R, dev=dev)
+        Df, Lf = entries(D, L)
+        cols = [rhs[:, :, i, :] for i in range(b)]
+        x = torch.stack(btk.block_tridiag_multirhs_entries(Df, Lf, cols, b),
+                        2)
+        x_pl = torch.stack(
+            btk.block_tridiag_multirhs_entries_plain(Df, Lf, cols, b), 2)
+        Dt = btk._stage_major(btk._lower(Df, b), B, S, dev)
+        Lt = btk._stage_major(btk._flat(Lf, b), B, S - 1, dev)
+        chol = torch.empty(S, b * (b + 1) // 2, B, device=dev)
+
+        def factor():
+            btk.BT_FACTOR([btk._ptr(Dt), btk._ptr(Lt), btk._ptr(chol)],
+                          [S, B, b], dev)
+
+        factor()
+        il, jl = torch.tril_indices(b, b, device=dev)
+        chol_pl = torch.stack(btk._factor_plain(D, L), 1)[:, :, il, jl]
+        torch.cuda.synchronize()
+        f_ax, f_rel = errs(chol.permute(2, 0, 1), chol_pl)
+        ax, rel = errs(x, x_pl)
+        print(f"[kernels] bt_factor B={B}: max_abs_err={f_ax:.3e} "
+              f"rel={f_rel:.3e}; bt_msolve B={B} R={R}: "
+              f"max_abs_err={ax:.3e} rel={rel:.3e}")
+        check(f_rel <= TOL_REL, f"bt_factor B={B} rel err {f_rel}")
+        check(rel <= TOL_REL, f"bt_msolve B={B} R={R} rel err {rel}")
+        rt = torch.stack(cols, 0)
+        xo = torch.empty_like(rt)
+
+        def msolve():
+            btk.BT_MSOLVE([btk._ptr(chol), btk._ptr(Lt), btk._ptr(rt),
+                           btk._ptr(xo)], [S, B, R, b], dev)
+
+        f_ms = time_ms(factor, 20)
+        s_ms = time_ms(msolve, 20)
+        w_ms = time_ms(
+            lambda: btk.block_tridiag_multirhs_entries(Df, Lf, cols, b), 10)
+        pf_ms = time_ms(lambda: btk._factor_plain(D, L), 3, warmup=1)
+        chol_list = btk._factor_plain(D, L)
+        ps_ms = time_ms(lambda: btk._substitute_plain(chol_list, L, rhs), 3,
+                        warmup=1)
+        K = dense_system(D, L)
+        lf_ms = time_ms(lambda: torch.linalg.cholesky(K), 5, warmup=1)
+        Kc = torch.linalg.cholesky(K)
+        rhs_d = rhs.reshape(B, S * b, R)
+        ls_ms = time_ms(lambda: torch.cholesky_solve(rhs_d, Kc), 5, warmup=1)
+        del K, Kc
+        fb, fby = bound("bt_factor", S, b, B)
+        sb, sby = bound("bt_msolve", S, b, B, R)
+        print(f"[kernels] multi-RHS B={B} R={R}: bt_factor {f_ms:.4f} ms "
+              f"(plain {pf_ms:.4f}, torch.linalg.cholesky {lf_ms:.4f}, bound "
+              f"{fb:.4f} {fby}); bt_msolve {s_ms:.4f} ms (plain {ps_ms:.4f}, "
+              f"torch.cholesky_solve {ls_ms:.4f}, bound {sb:.4f} {sby}); "
+              f"wrapper {w_ms:.4f} ms")
+        if (B, R) == (B_NN, N):
+            rec["bt_factor"] = dict(max_abs_err=f_ax, ms=f_ms, plain_ms=pf_ms,
+                                    bound_ms=fb, bound_by=fby,
+                                    library_ms=lf_ms, shape=[B, S, b])
+            rec["bt_msolve"] = dict(max_abs_err=ax, ms=s_ms, plain_ms=ps_ms,
+                                    bound_ms=sb, bound_by=sby,
+                                    library_ms=ls_ms, wrapper_ms=w_ms,
+                                    shape=[B, S, b, R])
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# main path
+# ---------------------------------------------------------------------------
+
+def bench_batch(B, tube, dev, seed=0):
+    """bench.py's randomised gap batch (numpy draws in bench.py's order)
+    and, for NN_oneshot, the 130->128->128->50 softplus-head tube MLP with
+    Kaiming-uniform weights, the last layer x0.1 and bias -2.5."""
+    from legged_gym_dev_tpu_torch.interop import (
+        mlp_from_numpy,
+        trajopt_params_from_numpy,
+    )
+    from legged_gym_dev_tpu_torch.solver import PROBLEM_DICT
+
+    prob = PROBLEM_DICT["gap"]
+    nn = None
+    if tube == "NN_oneshot":
+        wr = np.random.default_rng(seed + 1000)
+        sizes = [H_REV + (H_REV + N) * 2, 128, 128, N]
+        ws, bs = [], []
+        for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
+            bd = 1.0 / np.sqrt(fan_in)
+            ws.append(wr.uniform(-bd, bd, (fan_in, fan_out)))
+            bs.append(wr.uniform(-bd, bd, (fan_out,)))
+        ws[-1] = ws[-1] * 0.1
+        bs[-1] = bs[-1] * 0.0 - 2.5
+        nn = mlp_from_numpy(ws, bs, activation="softplus_b5",
+                            final_activation="softplus", device=dev)
+    rng = np.random.default_rng(seed)
+    z0 = prob["start"] + rng.uniform(-0.15, 0.15, (B, 2))
+    zf = prob["goal"] + rng.uniform(-0.15, 0.15, (B, 2))
+    obs_c = prob["obs"]["c"] + rng.uniform(-0.05, 0.05, (B, 2, 2))
+    obs_r = prob["obs"]["r"] * rng.uniform(0.85, 1.0, (B, 2))
+    return trajopt_params_from_numpy(
+        "SingleInt2D", prob["dt"], [-prob["pos_max"]] * 2,
+        [prob["pos_max"]] * 2, [-prob["vel_max"]] * 2, [prob["vel_max"]] * 2,
+        N, H_REV, 10 * np.eye(2), 10 * np.eye(2), z0, zf, obs_c, obs_r,
+        Qw=(0.1 if tube == "NN_oneshot" else 0.0), w_max=1.0,
+        tube_params=nn, device=dev)
+
+
+def solve_mode(tube, B, dev):
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.solver import (
+        VERDICT_NAMES,
+        ALConfig,
+        StagedProblem,
+        certify_staged_batched,
+        solve_tube_fast_batched,
+        staged_bounds,
+    )
+
+    p = bench_batch(B, tube, dev)
+    cfg = (ALConfig(linsolve="pallas") if tube == "l1"
+           else ALConfig(nn_basis_refresh=3, linsolve="pallas"))
+    before = btk.launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = solve_tube_fast_batched(p, N, H_REV, tube_kind=tube, scaling=0.5,
+                                  cfg=cfg, warm_start="interpolate",
+                                  tube_ws="evaluate", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    solve_launch = {k: v - before[k] for k, v in btk.launches().items()}
+    viol = out.sol.viol
+    check(out.z.shape == (B, N + 1, 2) and bool(torch.isfinite(out.z).all())
+          and bool(torch.isfinite(out.w).all()), f"{tube}: non-finite plan")
+    sp = StagedProblem(n=2, m=2, N=N, K=2,
+                       tube_kind=("nn" if tube == "NN_oneshot" else "l1"),
+                       scaling=0.5, track_ref=False)
+    lb, ub = staged_bounds(p, 2, 2, N)
+    t1 = time.perf_counter()
+    cert = certify_staged_batched(sp, p, out.sol.x.reshape(B, N + 1, -1),
+                                  viol, lb, ub, device=dev)
+    torch.cuda.synchronize()
+    cert_wall = time.perf_counter() - t1
+    verdicts = cert.verdict.cpu().numpy()
+    counts = {name: int(np.sum(verdicts == i))
+              for i, name in enumerate(VERDICT_NAMES)}
+    viol_np = viol.cpu().numpy()
+    feas = float(np.mean(viol_np < 1e-3))
+    after = btk.launches()
+    rec = dict(batch=B, solve_wall_s=wall, solves_per_s=B / wall,
+               feasible_frac=feas, max_viol=float(viol_np.max()),
+               max_viol_feasible=float(viol_np[verdicts == 0].max())
+               if (verdicts == 0).any() else 0.0,
+               verdicts=counts, certify_wall_s=cert_wall,
+               solve_launches=solve_launch,
+               launches={k: after[k] - before[k] for k in after})
+    print(f"[{tube}] " + json.dumps(rec))
+    check(feas >= 0.98, f"{tube}: feasible fraction {feas} < 0.98")
+    check(counts["failed"] <= 0.005 * B, f"{tube}: failed {counts}")
+    return rec
+
+
+def closed_loop(dev, B=B_NN, H=3):
+    import torch
+
+    from legged_gym_dev_tpu_torch.core import make_rom
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.solver import (
+        PROBLEM_DICT,
+        ALConfig,
+        closed_loop_tube_mpc_fast,
+    )
+
+    prob = PROBLEM_DICT["gap"]
+    p = bench_batch(B, "NN_oneshot", dev, seed=1)
+    robot = make_rom("DoubleInt2D", prob["dt"], [-np.inf, -np.inf, -0.3, -0.3],
+                     [np.inf, np.inf, 0.3, 0.3], [-0.5, -0.5], [0.5, 0.5],
+                     device=dev)
+    cfg_first = ALConfig(nn_basis_refresh=3, linsolve="pallas")
+    cfg_loop = ALConfig(outer_iters=4, inner_iters=6, nn_basis_refresh=3,
+                        linsolve="pallas")
+    before = btk.launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z, v, w, pzx, viols, adopted = closed_loop_tube_mpc_fast(
+        p, robot, tube_kind="NN_oneshot", scaling=0.5, H=H, N=N,
+        H_rev=H_REV, cfg_first=cfg_first, cfg_loop=cfg_loop,
+        warm_start="interpolate", tube_ws="evaluate", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = btk.launches()
+    for name, t in (("z", z), ("v", v), ("w", w), ("pz_x", pzx),
+                    ("viol", viols)):
+        check(bool(torch.isfinite(t).all()), f"closed loop: non-finite {name}")
+    check(z.shape == (B, H + 1, 2), f"closed loop z shape {tuple(z.shape)}")
+    rec = dict(batch=B, ticks=H, wall_s=wall,
+               ms_per_tick=1e3 * wall / (H + 1),
+               adopted_frac=float(adopted.float().mean()),
+               launches={k: after[k] - before[k] for k in after})
+    print("[loop] " + json.dumps(rec))
+    return rec
+
+
+def profile_window(dev):
+    """Where a solve's time goes: one short window (2x10 schedule) of each
+    mode under ``torch.profiler``, at bench width. Prints the host wall
+    time, the device time summed over the kernels it ran (one stream, so
+    they do not overlap), the device's busy share of the wall and the
+    kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from legged_gym_dev_tpu_torch.solver import (
+        ALConfig,
+        solve_tube_fast_batched,
+    )
+
+    for tube, B in (("l1", B_L1), ("NN_oneshot", B_NN)):
+        p = bench_batch(B, tube, dev)
+        cfg = ALConfig(outer_iters=2, inner_iters=10, linsolve="pallas",
+                       nn_basis_refresh=(3 if tube == "NN_oneshot"
+                                         else "inner"))
+
+        def run():
+            solve_tube_fast_batched(p, N, H_REV, tube_kind=tube, scaling=0.5,
+                                    cfg=cfg, warm_start="interpolate",
+                                    tube_ws="evaluate", device=dev)
+            torch.cuda.synchronize()
+
+        run()                                   # warm caches and allocator
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall = time.perf_counter() - t0
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n_us = by_name.setdefault(e.name, [0, 0.0])
+                n_us[0] += 1
+                n_us[1] += e.time_range.elapsed_us()
+        launches = sum(v[0] for v in by_name.values())
+        busy_ms = 1e-3 * sum(v[1] for v in by_name.values())
+        check(launches > 0, f"profile {tube}: the trace holds no device op")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        rec = dict(batch=B, schedule="2x10", wall_ms=1e3 * wall,
+                   device_busy_ms=busy_ms,
+                   busy_share=busy_ms / (1e3 * wall),
+                   device_ops=launches,
+                   us_per_device_op=1e3 * busy_ms / launches,
+                   top=[[name[:60], n, 1e-3 * us] for name, (n, us) in top])
+        print(f"[profile {tube}] " + json.dumps(rec))
+
+
+def reference_check(dev):
+    """The port on the card (kernels) against the port on the CPU (plain
+    versions) on a small bench batch: l1 and NN_oneshot, B=8, N=50, an 8x6
+    schedule. Bar: plans within 2e-3."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.solver import (
+        ALConfig,
+        solve_tube_fast_batched,
+    )
+
+    for tube in ("l1", "NN_oneshot"):
+        cfg = ALConfig(outer_iters=8, inner_iters=6, linsolve="pallas",
+                       nn_basis_refresh=(3 if tube == "NN_oneshot"
+                                         else "inner"))
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            p = bench_batch(8, tube, d, seed=2)
+            outs.append(solve_tube_fast_batched(
+                p, N, H_REV, tube_kind=tube, scaling=0.5, cfg=cfg,
+                warm_start="interpolate", tube_ws="evaluate", device=d))
+        dz = float((outs[0].z.cpu() - outs[1].z).abs().max())
+        dw = float((outs[0].w.cpu() - outs[1].w).abs().max())
+        print(f"[ref] {tube} B=8: card vs CPU max|dz|={dz:.3e} "
+              f"max|dw|={dw:.3e}")
+        check(dz < 2e-3 and dw < 2e-3, f"{tube}: card and CPU disagree")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES))
+    args = ap.parse_args(argv)
+    phases = [s for s in args.phases.split(",") if s]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    from legged_gym_dev_tpu_torch.ops import _build
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    lib, report = _build.build("block_tridiag.cu")
+    print(f"[build] {lib} in {time.perf_counter() - t0:.1f} s")
+    for line in report.splitlines():
+        print(f"[build] {line.strip()}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    with fp32_matmul():
+        krec = kernel_phase(dev) if "kernels" in phases else {}
+    btk.reset_launches()
+    if "l1" in phases:
+        solve_mode("l1", B_L1, dev)
+        check(btk.launches()["bt_solve"] > 0, "l1 path: no bt_solve launch")
+    if "nn" in phases:
+        before = btk.launches()
+        solve_mode("NN_oneshot", B_NN, dev)
+        after = btk.launches()
+        for k in ("bt_solve", "bt_factor", "bt_msolve"):
+            check(after[k] > before[k], f"NN path: no {k} launch")
+    if "loop" in phases:
+        closed_loop(dev)
+    main_launches = btk.launches()
+    print(f"[launches] main path: {json.dumps(main_launches)}")
+    if "ref" in phases:
+        reference_check(dev)
+    if "profile" in phases:
+        profile_window(dev)
+
+    if krec:
+        kernels = []
+        for name in ("bt_solve", "bt_factor", "bt_msolve"):
+            r = krec[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[name],
+                "launches": main_launches[name],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                **{k: v for k, v in r.items()
+                   if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}})
+        print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

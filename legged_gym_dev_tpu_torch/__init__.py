@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of ``legged_gym_dev_tpu``.
+
+The JAX package beside this one is the reference; every module here mirrors
+the module of the same path there. Plain tensor code is PyTorch; the TPU's
+Pallas kernels become CUDA C++ kernels for Hopper (``csrc/``), each with a
+plain PyTorch version beside its wrapper (``ops/``).
+
+Device rule: entry points take ``device=None``, which means the CUDA card;
+without one they raise instead of running on the CPU. Pass ``device="cpu"``
+to run on the CPU (the tests do). Solver code runs in full fp32 with TF32
+off (``utils.runtime.fp32_matmul``).
+"""
+from .utils.runtime import fp32_matmul, resolve_device
+
+__all__ = ["fp32_matmul", "resolve_device"]

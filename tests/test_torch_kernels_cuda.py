@@ -1,0 +1,96 @@
+"""The port's CUDA kernels (csrc/block_tridiag.cu) on the card against their
+plain PyTorch versions, at small shapes, at the main path's shapes and at a
+batch that is not a multiple of the 64-thread block (the ragged edge).
+Tolerance: max |kernel - plain| / max |plain| <= 1e-4 (fp32; the two sum in
+different orders).
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+with a card and PyTorch alone (``--noconftest`` skips tests/conftest.py,
+which sets JAX up):
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q -m cuda
+
+Without a card every test skips (the kernels have no CPU mode). The SPD
+system builders here are shared with the CPU parity tests.
+"""
+import numpy as np
+import pytest
+import torch
+
+from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+
+SMALL = [(8, 12, 5), (16, 51, 5), (4, 6, 3)]
+
+
+def make_systems(B, S, b, R=1, seed=0):
+    """numpy SPD block-tridiagonal systems: D = A A^T + (2+b) I."""
+    rng = np.random.default_rng(seed)
+    L = (rng.normal(size=(B, S - 1, b, b)) * 0.3).astype(np.float32)
+    A = rng.normal(size=(B, S, b, b)).astype(np.float32)
+    D = (np.einsum("bsij,bskj->bsik", A, A)
+         + (2.0 + b) * np.eye(b, dtype=np.float32)).astype(np.float32)
+    rhs = rng.normal(size=(B, S, b, R)).astype(np.float32)
+    return D, L, rhs
+
+
+def entry_lists(D, L, conv):
+    b = D.shape[-1]
+    return ([[conv(D[:, :, i, j]) for j in range(b)] for i in range(b)],
+            [[conv(L[:, :, i, j]) for j in range(b)] for i in range(b)])
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def rel(x, ref):
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,b", SMALL + [(2048, 51, 5), (1000, 51, 5)])
+def test_bt_solve_matches_plain_on_card(card, B, S, b):
+    """bt_solve through the entry-form and the array-form wrappers."""
+    D, L, rhs = make_systems(B, S, b, seed=B)
+    Dt, Lt = entry_lists(D, L, lambda a: torch.as_tensor(a, device=card))
+    r = [torch.as_tensor(rhs[:, :, i, 0], device=card) for i in range(b)]
+    x = torch.stack(btk.block_tridiag_solve_entries(Dt, Lt, r, b), -1)
+    x_pl = torch.stack(btk.block_tridiag_solve_entries_plain(Dt, Lt, r, b),
+                       -1)
+    assert rel(x, x_pl) <= 1e-4
+    xb = btk.block_tridiag_solve(torch.as_tensor(D, device=card),
+                                 torch.as_tensor(L, device=card),
+                                 torch.as_tensor(rhs[..., 0], device=card))
+    assert rel(xb, x_pl) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,b,R", [(8, 12, 5, 7), (1024, 51, 5, 50),
+                                     (2048, 51, 5, 51), (1000, 51, 5, 3)])
+def test_bt_factor_msolve_match_plain_on_card(card, B, S, b, R):
+    """bt_factor + bt_msolve through the multi-RHS wrapper."""
+    D, L, rhs = make_systems(B, S, b, R, seed=B + R)
+    Dt, Lt = entry_lists(D, L, lambda a: torch.as_tensor(a, device=card))
+    cols = [torch.as_tensor(rhs[:, :, i, :], device=card) for i in range(b)]
+    x = torch.stack(btk.block_tridiag_multirhs_entries(Dt, Lt, cols, b))
+    x_pl = torch.stack(
+        btk.block_tridiag_multirhs_entries_plain(Dt, Lt, cols, b))
+    assert rel(x, x_pl) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_launch_counts(card):
+    """Each wrapper call adds one launch to the kernels it runs, and the
+    plain versions add none."""
+    D, L, rhs = make_systems(64, 6, 5, 3, seed=1)
+    Dt, Lt = entry_lists(D, L, lambda a: torch.as_tensor(a, device=card))
+    cols = [torch.as_tensor(rhs[:, :, i, :], device=card) for i in range(5)]
+    btk.reset_launches()
+    btk.block_tridiag_solve_entries(Dt, Lt, [c[:, :, 0] for c in cols], 5)
+    btk.block_tridiag_multirhs_entries(Dt, Lt, cols, 5)
+    btk.block_tridiag_multirhs_entries_plain(Dt, Lt, cols, 5)
+    torch.cuda.synchronize()
+    assert btk.launches() == {"bt_solve": 1, "bt_factor": 1, "bt_msolve": 1}

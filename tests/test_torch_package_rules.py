@@ -1,0 +1,115 @@
+"""Rules of the PyTorch/CUDA port that hold for every file of it.
+
+- No file under ``legged_gym_dev_tpu_torch/``, nor ``chip_smoke.py`` nor
+  the card tests (``tests/test_torch_kernels_cuda.py``), imports ``jax``,
+  ``flax`` or the JAX package (an AST scan of every ``import`` and
+  ``from ... import``, relative imports resolved).
+- Entry points called without ``device`` mean the CUDA card: on a machine
+  without one they raise instead of running on the CPU.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from legged_gym_dev_tpu_torch.interop import (
+    mlp_from_numpy,
+    trajopt_params_from_numpy,
+)
+from legged_gym_dev_tpu_torch.solver import (
+    ALConfig,
+    StagedProblem,
+    certify_staged_batched,
+    closed_loop_tube_mpc_fast,
+    solve_tube_fast_batched,
+    staged_bounds,
+)
+from legged_gym_dev_tpu_torch.utils.runtime import resolve_device
+from tests.torch_port_cases import ROM_ARGS, gap_case, torch_params
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "legged_gym_dev_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "legged_gym_dev_tpu")
+
+
+def _port_files():
+    """The package, chip_smoke.py and the card tests, which run on a
+    machine without JAX."""
+    return sorted(PACKAGE.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py"]
+
+
+def _imported_modules(path):
+    """Absolute names of every module a file imports."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    rel = path.relative_to(ROOT).with_suffix("").parts
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = list(rel[:len(rel) - node.level])
+                names.append(".".join(base + ([node.module]
+                                              if node.module else [])))
+            else:
+                names.append(node.module)
+    return names
+
+
+def test_scan_sees_the_whole_port():
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for needed in ("chip_smoke.py",
+                   "legged_gym_dev_tpu_torch/solver/staged_scalar.py",
+                   "legged_gym_dev_tpu_torch/ops/block_tridiag_kernels.py"):
+        assert needed in files
+    # the resolver turns a relative import into its absolute module
+    assert ("legged_gym_dev_tpu_torch.ops.block_tridiag_kernels"
+            in _imported_modules(PACKAGE / "solver" / "staged_scalar.py"))
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_imports_no_jax(path):
+    bad = [name for name in _imported_modules(path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_raises_without_card(monkeypatch):
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_raise_without_card(monkeypatch):
+    """Each entry point called without ``device`` raises on a machine with
+    no card (and so does building inputs for it without ``device``)."""
+    _no_card(monkeypatch)
+    case = gap_case(2, 10, 4, "l1")
+    p = torch_params(case)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solve_tube_fast_batched(p, 10, 4, cfg=ALConfig(outer_iters=1,
+                                                       inner_iters=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        closed_loop_tube_mpc_fast(p, p.rom, H=1, N=10, H_rev=4)
+    sp = StagedProblem(n=2, m=2, N=10, K=2, tube_kind="l1", scaling=0.5,
+                       track_ref=False)
+    lb, ub = staged_bounds(p, 2, 2, 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        certify_staged_batched(sp, p, torch.zeros(2, 11, 5),
+                               torch.zeros(2), lb, ub)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trajopt_params_from_numpy(*ROM_ARGS, 10, 4, np.eye(2), np.eye(2),
+                                  case["z0"], case["zf"], case["obs_c"],
+                                  case["obs_r"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mlp_from_numpy([np.eye(2, dtype=np.float32)],
+                       [np.zeros(2, np.float32)])

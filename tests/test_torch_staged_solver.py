@@ -1,0 +1,179 @@
+"""Port of the staged tube solver (solver/staged_scalar.py, fast_tube.py)
+against the JAX package on the same numpy-drawn gap batch (B=4..8, N=20).
+
+- The GN assembly and the merit, batch-major in the port, against the
+  module-level JAX functions under ``jax.vmap``: 1e-5 relative to each
+  quantity's largest magnitude (fp32; penalties of 1e2-1e4 scale it).
+- One AL step (ALConfig(outer_iters=1, inner_iters=1)) end to end: 1e-4
+  relative.
+
+Whole solves are compared in tests/test_torch_fast_tube.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from legged_gym_dev_tpu.solver import ALConfig as JaxConfig
+from legged_gym_dev_tpu.solver import staged_scalar as jss
+from legged_gym_dev_tpu.solver.fast_tube import StagedProblem as JaxProblem
+from legged_gym_dev_tpu.solver.fast_tube import (
+    solve_tube_fast_batched as jax_solve_batched,
+)
+from legged_gym_dev_tpu_torch.solver import (
+    ALConfig,
+    StagedProblem,
+    solve_tube_fast_batched,
+)
+from legged_gym_dev_tpu_torch.solver import staged_scalar as tss
+from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
+from tests.torch_port_cases import gap_case, jax_params, torch_params
+
+N, H_REV = 20, 10
+S, b = N + 1, 5
+E, I = 2 * N + 2 + N, 2 * S
+
+
+def rel_err(t, ref):
+    t, ref = np.asarray(t, np.float64), np.asarray(ref, np.float64)
+    return np.abs(t - ref).max() / max(np.abs(ref).max(), 1e-12)
+
+
+@pytest.fixture(scope="module", params=["l1", "NN_oneshot"])
+def state(request):
+    """A gap batch and an AL state (iterate, multipliers, penalty) drawn
+    with numpy, in both packages' forms."""
+    tube = request.param
+    B = 4
+    case = gap_case(B, N, H_REV, tube, seed=3)
+    rng = np.random.default_rng(5)
+    alpha = np.linspace(0.0, 1.0, S)[None, :, None]
+    z = case["z0"][:, None] + alpha * (case["zf"] - case["z0"])[:, None]
+    u = np.zeros((B, S, b), np.float32)
+    u[:, :, :2] = z + 0.02 * rng.normal(size=z.shape)
+    u[:, :, 2] = 0.1 + 0.02 * rng.random((B, S))
+    u[:, :-1, 3:] = rng.uniform(-0.2, 0.2, (B, N, 2))
+    u[:, 3, 3] = 0.0                                  # an l1 kink
+    lam = (0.5 * rng.normal(size=(B, E))).astype(np.float32)
+    mu = np.maximum(rng.normal(size=(B, I)), 0.0).astype(np.float32)
+    rho = np.array([100.0, 500.0, 2500.0, 3e4][:B], np.float32)
+    kind = "nn" if tube == "NN_oneshot" else "l1"
+    return dict(
+        tube=tube, case=case, u=u, lam=lam, mu=mu, rho=rho,
+        sp_j=JaxProblem(n=2, m=2, N=N, K=2, tube_kind=kind, scaling=0.5,
+                        track_ref=False),
+        sp_t=StagedProblem(n=2, m=2, N=N, K=2, tube_kind=kind, scaling=0.5,
+                           track_ref=False),
+        pj=jax_params(case), pt=torch_params(case))
+
+
+def _dense_jax(grad, D, L, U):
+    g = jnp.stack(grad)
+    Dl = jnp.stack([jnp.zeros(S) + D[i][j] for i in range(b)
+                    for j in range(i + 1)])
+    Ll = jnp.stack([jnp.zeros(N) + L[i][j] for i in range(b)
+                    for j in range(b)])
+    Ul = (jnp.zeros((1,)) if U is None else
+          jnp.stack([jnp.zeros((S, N)) + U[i] for i in range(b)]))
+    return g, Dl, Ll, Ul
+
+
+def _dense_torch(grad, D, L, U, B):
+    g = torch.stack(grad, 1)
+    Dl = torch.stack([torch.zeros(B, S) + D[i][j] for i in range(b)
+                      for j in range(i + 1)], 1)
+    Ll = torch.stack([torch.zeros(B, N) + L[i][j] for i in range(b)
+                      for j in range(b)], 1)
+    Ul = (torch.zeros(B, 1) if U is None else
+          torch.stack([torch.zeros(B, S, N) + U[i] for i in range(b)], 1))
+    return g, Dl, Ll, Ul
+
+
+@pytest.mark.parametrize("variant", ["full", "grad_rho0", "vjp"])
+def test_assemble_matches_jax(state, variant):
+    st = state
+    if variant == "vjp" and st["tube"] != "NN_oneshot":
+        pytest.skip("the VJP gradient exists for the NN tube only")
+    kw = dict(grad_rho=0.0) if variant == "grad_rho0" else {}
+    if variant == "vjp":
+        kw = dict(nn_need_U=False)
+
+    def jax_fn(pp, uu, ll, mm, rr):
+        u_e = tuple(uu[:, i] for i in range(b))
+        return _dense_jax(*jss._assemble_e(st["sp_j"], u_e, pp, ll, mm, rr,
+                                           **kw))
+
+    ref = jax.vmap(jax_fn)(st["pj"], jnp.asarray(st["u"]),
+                           jnp.asarray(st["lam"]), jnp.asarray(st["mu"]),
+                           jnp.asarray(st["rho"]))
+    u = torch.as_tensor(st["u"])
+    with fp32_matmul():
+        out = _dense_torch(*tss._assemble_e(
+            st["sp_t"], tuple(u[:, :, i] for i in range(b)), st["pt"],
+            torch.as_tensor(st["lam"]), torch.as_tensor(st["mu"]),
+            torch.as_tensor(st["rho"])[:, None], **kw), 4)
+    for name, t, r in zip(("grad", "D", "L", "U"), out, ref):
+        assert rel_err(t.numpy(), r) <= 1e-5, (name, rel_err(t.numpy(), r))
+
+
+def test_merit_matches_jax(state):
+    """Merit of the iterate and of a stack of line-search candidates
+    (leading candidate axis in both packages' per-batch form)."""
+    st = state
+    rng = np.random.default_rng(9)
+    cand = st["u"][None] + 0.01 * rng.normal(size=(3,) + st["u"].shape)
+    cand = cand.astype(np.float32)
+
+    def jax_fn(pp, uu, cc, ll, mm, rr):
+        m0 = jss._merit_e(st["sp_j"], tuple(uu[:, i] for i in range(b)), pp,
+                          ll, mm, rr)
+        mc = jss._merit_e(st["sp_j"], tuple(cc[:, :, i] for i in range(b)),
+                          pp, ll, mm, rr)
+        return m0, mc
+
+    m0_j, mc_j = jax.vmap(jax_fn)(
+        st["pj"], jnp.asarray(st["u"]), jnp.asarray(cand.transpose(1, 0, 2, 3)),
+        jnp.asarray(st["lam"]), jnp.asarray(st["mu"]), jnp.asarray(st["rho"]))
+    u, c = torch.as_tensor(st["u"]), torch.as_tensor(cand)
+    args = (st["pt"], torch.as_tensor(st["lam"]), torch.as_tensor(st["mu"]),
+            torch.as_tensor(st["rho"])[:, None])
+    with fp32_matmul():
+        m0 = tss._merit_e(st["sp_t"], tuple(u[:, :, i] for i in range(b)),
+                          *args)
+        mc = tss._merit_e(st["sp_t"], tuple(c[..., i] for i in range(b)),
+                          *args)
+    assert tuple(m0.shape) == (4, 1) and tuple(mc.shape) == (3, 4, 1)
+    assert rel_err(m0[:, 0].numpy(), m0_j) <= 1e-5
+    assert rel_err(mc[..., 0].numpy().T, mc_j) <= 1e-5
+
+
+def _solve_both(case, tube, cfg_kw, linsolve_jax, linsolve_port):
+    kw = dict(tube_kind=tube, scaling=0.5, warm_start="interpolate",
+              tube_ws="evaluate")
+    out_j = jax.jit(lambda pb: jax_solve_batched(
+        pb, N, H_REV, cfg=JaxConfig(linsolve=linsolve_jax, **cfg_kw),
+        **kw))(jax_params(case))
+    out_t = solve_tube_fast_batched(
+        torch_params(case), N, H_REV,
+        cfg=ALConfig(linsolve=linsolve_port, **cfg_kw), device="cpu", **kw)
+    return out_j, out_t
+
+
+@pytest.mark.parametrize("tube", ["l1", "NN_oneshot"])
+def test_one_al_step_matches_jax(tube):
+    case = gap_case(4, N, H_REV, tube, seed=4)
+    out_j, out_t = _solve_both(case, tube, dict(outer_iters=1, inner_iters=1),
+                               "thomas", "thomas")
+    for name in ("x", "lam", "mu", "viol", "obj", "grad_norm", "rho"):
+        r = rel_err(getattr(out_t.sol, name).numpy(),
+                    np.asarray(getattr(out_j.sol, name)))
+        assert r <= 1e-4, (name, r)
+
+
+def test_cr_linsolve_not_ported():
+    case = gap_case(2, N, H_REV, "l1")
+    with pytest.raises(NotImplementedError):
+        solve_tube_fast_batched(torch_params(case), N, H_REV,
+                                cfg=ALConfig(linsolve="cr"), device="cpu")
