@@ -21,7 +21,18 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    and on the CPU (plain versions) must agree;
 6. a ``torch.profiler`` window of each mode: device busy share and the
    kernels with the most device time;
-7. prints one ``{"kernels": [...]}`` line, then, last,
+7. substep phase: the physics-substep kernel (``csrc/substep.cu``) against
+   its plain PyTorch version at B=4096 on both test robots
+   (``tests/torch_robot_cases.py``: the 12-joint quadruped and the 4-joint
+   robot with a prismatic foot and springs), random well-conditioned
+   states with per-env DR rows; kernel, plain and bound times;
+8. rl phase (main path of the RL slice): the ROM-trajectory task on the
+   quadruped at B=4096 (``make_trajectory_env`` with the ANYmal-C
+   settings), a random-weight 512-256-128 ``ActorCritic`` and one PPO
+   rollout of 24 env steps (96 substep launches, counted), env-steps/s,
+   the share of ``_contact_forces``, and a ``torch.profiler`` window of
+   one env step;
+9. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -29,28 +40,37 @@ result line. Without a CUDA device it exits non-zero at once.
 
 Usage: ``python3 chip_smoke.py`` (all phases), or
 ``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
-debugging (phases: kernels, l1, nn, loop, ref, profile).
+debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl).
 """
 import argparse
+import concurrent.futures
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
-PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile")
+PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl")
 N, H_REV = 50, 10
 B_L1, B_NN = 2048, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
-SOURCE = "legged_gym_dev_tpu_torch/csrc/block_tridiag.cu"
+SOURCES = {
+    "bt_solve": "legged_gym_dev_tpu_torch/csrc/block_tridiag.cu",
+    "bt_factor": "legged_gym_dev_tpu_torch/csrc/block_tridiag.cu",
+    "bt_msolve": "legged_gym_dev_tpu_torch/csrc/block_tridiag.cu",
+    "substep": "legged_gym_dev_tpu_torch/csrc/substep.cu",
+}
 REPLACES = {
     "bt_solve": "legged_gym_dev_tpu/ops/pallas_block_tridiag.py:182",
     "bt_factor": "legged_gym_dev_tpu/ops/pallas_block_tridiag.py:463",
     "bt_msolve": "legged_gym_dev_tpu/ops/pallas_block_tridiag.py:481",
+    "substep": "legged_gym_dev_tpu/ops/pallas_substep.py:237",
 }
 TOL_REL = 1e-4   # kernel vs plain version: max |diff| / max |plain|
+B_RL = 4096      # envs of the RL rollout and of the substep check
 
 
 def check(cond, msg):
@@ -509,6 +529,245 @@ def reference_check(dev):
         check(dz < 2e-3 and dw < 2e-3, f"{tube}: card and CPU disagree")
 
 
+# ---------------------------------------------------------------------------
+# RL slice: the physics substep kernel and the rollout
+# ---------------------------------------------------------------------------
+
+def robot_cases():
+    """``tests/torch_robot_cases.py`` (the test robots), loaded by path:
+    another installed package may own the name ``tests``."""
+    import importlib.util
+
+    name = "torch_robot_cases"
+    if name not in sys.modules:
+        path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+ARITH_OPS = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "sin", "cos",
+             "exp", "abs", "clamp", "clamp_min", "clamp_max", "minimum",
+             "maximum", "where", "sum", "linalg_vector_norm", "reciprocal",
+             "gt", "lt", "ge", "le", "bitwise_or"}
+
+
+def substep_ops_per_env(robot):
+    """Arithmetic operations of one env's substep, counted once from the
+    plain version on the CPU at B=1 (DR rows on): every arithmetic aten op
+    counts one per output element."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+
+    rc = robot_cases()
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.__name__.split(".")[0].rstrip("_")
+            if name in ARITH_OPS and isinstance(out, torch.Tensor):
+                Count.n += out.numel()
+            return out
+
+    inp = rc.substep_inputs(robot, 1, 0, dr=True)
+    sim = rc.torch_sim(robot, "cpu", inp)
+    st, tau = rc.torch_state(inp)
+    Count.n = 0
+    with Count():
+        sk.substep_plain(sim, st, tau)
+    return Count.n
+
+
+def substep_phase(dev):
+    """K3 against its plain version at B=4096 on both test robots; times
+    and the bound. Returns the quadruped's record (the main path's)."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+
+    rc = robot_cases()
+    rec = {}
+    for robot in ("quadruped", "hopper4"):
+        inp = rc.substep_inputs(robot, B_RL, seed=7, dr=True)
+        sim = rc.torch_sim(robot, dev, inp)
+        st, tau = rc.torch_state(inp, dev)
+        out = sk.substep(sim, st, tau)
+        ref = sk.substep_plain(sim, st, tau)
+        torch.cuda.synchronize()
+        errs_ = {}
+        for name in ("base_pos", "base_quat", "q", "v"):
+            a, b = getattr(out, name), getattr(ref, name)
+            check(bool(torch.isfinite(a).all()), f"{robot}: non-finite {name}")
+            errs_[name] = errs(a, b)
+        ax = max(e[0] for e in errs_.values())
+        print(f"[substep] {robot} B={B_RL}: " + ", ".join(
+            f"{k} max_abs_err={e[0]:.3e} rel={e[1]:.3e}"
+            for k, e in errs_.items()))
+        for name, (_, r) in errs_.items():
+            check(r <= TOL_REL, f"substep {robot} {name} rel err {r}")
+        nj, nv = sim.model.nj, sim.model.nv
+        nc = len(sim.model.contact_body)
+        xs = torch.cat([st.base_pos, st.base_quat, st.q, st.v, tau],
+                       1).t().contiguous()
+        dr = sk.dr_rows(sim, B_RL, dev)
+        params = sk._model_tensor(sim, dev)
+        o = torch.empty((7 + nj + nv, B_RL), device=dev)
+
+        def launch():
+            sk.SUBSTEP([sk._ptr(params), sk._ptr(xs), sk._ptr(dr),
+                        sk._ptr(o)], [nj, nc, B_RL, 1], dev)
+
+        ms = time_ms(lambda: sk.substep(sim, st, tau), 20)
+        k_ms = time_ms(launch, 50)
+        p_ms = time_ms(lambda: sk.substep_plain(sim, st, tau), 3, warmup=1)
+        ops = substep_ops_per_env(robot) * B_RL
+        nbytes = 4 * (xs.numel() + dr.numel() + o.numel() + params.numel())
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        bms, by = 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o
+                                        else "operations")
+        print(f"[substep] {robot} B={B_RL} nj={nj} nc={nc}: wrapper "
+              f"{ms:.4f} ms, kernel alone {k_ms:.4f} ms, plain {p_ms:.4f} "
+              f"ms, bound {bms:.6f} ms ({by}: {nbytes / 1e6:.3f} MB, "
+              f"{ops / 1e6:.2f} Mop)")
+        rec[robot] = dict(max_abs_err=ax, ms=ms, kernel_only_ms=k_ms,
+                          plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                          library_ms=None, shape=[B_RL, nj, nc],
+                          ops_per_env=ops // B_RL, bytes=nbytes)
+    out = dict(rec["quadruped"])
+    out["hopper4"] = {k: rec["hopper4"][k] for k in
+                      ("max_abs_err", "ms", "kernel_only_ms", "plain_ms",
+                       "bound_ms", "bound_by")}
+    return out
+
+
+def rl_policy(num_obs, num_actions, seed, dev):
+    """ActorCritic 512-256-128 ELU with LeCun-normal weights drawn with
+    numpy (as flax initializes them), through the interop path."""
+    from legged_gym_dev_tpu_torch.interop import actor_critic_from_numpy
+
+    rng = np.random.default_rng(seed)
+
+    def body(dims):
+        out = {}
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+            out[f"Dense_{i}"] = {
+                "kernel": (rng.normal(size=(a, b)) / np.sqrt(a))
+                .astype(np.float32),
+                "bias": np.zeros(b, np.float32)}
+        return out
+
+    params = {"actor": body([num_obs, 512, 256, 128, num_actions]),
+              "critic": body([num_obs, 512, 256, 128, 1]),
+              "log_std": np.zeros(num_actions, np.float32)}
+    return actor_critic_from_numpy({"params": params}, device=dev)
+
+
+def make_rl_env(dev):
+    from legged_gym_dev_tpu_torch.envs.presets import (
+        _anymal_c_kwargs,
+        make_trajectory_env,
+    )
+
+    return make_trajectory_env(robot_cases().QUADRUPED_URDF,
+                               **_anymal_c_kwargs({}),
+                               max_contact_force=350.0, num_envs=B_RL,
+                               device=dev)
+
+
+def rl_rollout(dev):
+    """The RL main path: reset, then one PPO rollout of 24 env steps at
+    B=4096. The substep count is zeroed just before and read just after."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+    from legged_gym_dev_tpu_torch.rl import PPOConfig, rollout
+
+    env = make_rl_env(dev)
+    check(env.num_obs == 65, f"num_obs {env.num_obs} != 65")
+    model = rl_policy(env.num_obs, env.num_actions, 11, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cfg = PPOConfig()
+    state, obs = env.reset(gen)
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    state, batch, metrics = rollout(env, model, state, cfg, gen, obs=obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.launches()["substep"]
+    T = cfg.num_steps
+    check(tuple(batch.obs.shape) == (T, B_RL, 65),
+          f"rollout obs shape {tuple(batch.obs.shape)}")
+    for name in ("obs", "values", "advantages", "returns", "means"):
+        check(bool(torch.isfinite(getattr(batch, name)).all()),
+              f"rollout: non-finite {name}")
+    # the mean over all T x B rewards is finite only if every reward is
+    check(bool(torch.isfinite(metrics["mean_reward"])),
+          "rollout: non-finite reward")
+    rec = dict(batch=B_RL, env_steps=T, wall_s=wall,
+               env_steps_per_s=T * B_RL / wall,
+               ms_per_env_step=1e3 * wall / T,
+               substep_launches=launches,
+               mean_reward=float(metrics["mean_reward"]))
+    check(launches == T * env.sim.decimation,
+          f"substep launches {launches} != {T * env.sim.decimation}")
+    print("[rl] " + json.dumps(rec))
+    return env, model, state, gen, rec
+
+
+def rl_profile(env, model, state, gen):
+    """Where one env step's time goes: a torch.profiler window of one
+    step, and CUDA-event times of a step and of its ``_contact_forces``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
+
+    with torch.no_grad(), fp32_matmul():
+        obs = env._obs(state)
+        actions = model(obs)[0]
+        env.step(state, actions)                  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            env.step(state, actions)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        step_ms = time_ms(lambda: env.step(state, actions), 5, warmup=1)
+        robot, sim = state.robot, env._dr_sim(state)
+        cf_ms = time_ms(lambda: env._contact_forces(robot, sim), 5,
+                        warmup=1)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_us = by_name.setdefault(e.name, [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += e.time_range.elapsed_us()
+    ops = sum(v[0] for v in by_name.values())
+    busy_ms = 1e-3 * sum(v[1] for v in by_name.values())
+    check(ops > 0, "rl profile: the trace holds no device op")
+    k3_ms = 1e-3 * sum(us for name, (_, us) in by_name.items()
+                       if "substep_kernel" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    rec = dict(batch=B_RL, wall_ms=1e3 * wall, device_busy_ms=busy_ms,
+               busy_share=busy_ms / (1e3 * wall), device_ops=ops,
+               substep_device_ms=k3_ms,
+               substep_share_of_device=k3_ms / busy_ms if busy_ms else 0.0,
+               step_ms_events=step_ms, contact_forces_ms=cf_ms,
+               contact_forces_share=cf_ms / step_ms,
+               top=[[name[:60], n, 1e-3 * us] for name, (n, us) in top])
+    print("[profile rl] " + json.dumps(rec))
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -530,10 +789,15 @@ def main(argv=None):
 
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
-    lib, report = _build.build("block_tridiag.cu")
-    print(f"[build] {lib} in {time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        print(f"[build] {line.strip()}")
+    # one nvcc per source, all started together
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        builds = list(pool.map(_build.build, ("block_tridiag.cu",
+                                              "substep.cu")))
+    print(f"[build] {[str(lib) for lib, _ in builds]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for _, report in builds:
+        for line in report.splitlines():
+            print(f"[build] {line.strip()}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -544,6 +808,8 @@ def main(argv=None):
 
     with fp32_matmul():
         krec = kernel_phase(dev) if "kernels" in phases else {}
+    if "substep" in phases:
+        krec["substep"] = substep_phase(dev)
     btk.reset_launches()
     if "l1" in phases:
         solve_mode("l1", B_L1, dev)
@@ -557,20 +823,28 @@ def main(argv=None):
     if "loop" in phases:
         closed_loop(dev)
     main_launches = btk.launches()
+    if "rl" in phases:
+        rl_state = rl_rollout(dev)          # zeroes and reads its count
+        main_launches["substep"] = rl_state[-1]["substep_launches"]
+        check(main_launches["substep"] > 0, "rl path: no substep launch")
     print(f"[launches] main path: {json.dumps(main_launches)}")
     if "ref" in phases:
         reference_check(dev)
     if "profile" in phases:
         profile_window(dev)
+    if "rl" in phases:
+        rl_profile(*rl_state[:4])
 
     if krec:
         kernels = []
-        for name in ("bt_solve", "bt_factor", "bt_msolve"):
+        for name in ("bt_solve", "bt_factor", "bt_msolve", "substep"):
+            if name not in krec:
+                continue
             r = krec[name]
             kernels.append({
-                "name": name, "route": "cuda", "source": SOURCE,
+                "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
-                "launches": main_launches[name],
+                "launches": main_launches.get(name, 0),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -1,0 +1,84 @@
+"""Quaternion / SO(3) / angle math as batched PyTorch functions.
+
+Counterpart of ``legged_gym_dev_tpu/core/maths.py``; only what the RL
+rollout path uses is ported. Quaternions are ``(x, y, z, w)``
+(scalar-last), as in Isaac Gym and the JAX package. Every function is
+batched over leading axes.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+_EPS = 1e-8
+
+
+def wrap_to_pi(angle: torch.Tensor) -> torch.Tensor:
+    """Wrap angles to (-pi, pi] (floor modulo, as ``jnp.mod``)."""
+    return torch.remainder(angle + math.pi, 2.0 * math.pi) - math.pi
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
+                           min=_EPS)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (x,y,z,w) quaternions."""
+    ax, ay, az, aw = a.unbind(-1)
+    bx, by, bz, bw = b.unbind(-1)
+    x = aw * bx + ax * bw + ay * bz - az * by
+    y = aw * by - ax * bz + ay * bw + az * bx
+    z = aw * bz + ax * by - ay * bx + az * bw
+    w = aw * bw - ax * bx - ay * by - az * bz
+    return torch.stack([x, y, z, w], dim=-1)
+
+
+def quat_apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v by quaternion(s) q (x,y,z,w)."""
+    u = q[..., :3]
+    w = q[..., 3:4]
+    t = 2.0 * torch.linalg.cross(u, v, dim=-1)
+    return v + w * t + torch.linalg.cross(u, t, dim=-1)
+
+
+def quat_to_yaw(q: torch.Tensor) -> torch.Tensor:
+    """Yaw (z euler) of an (x,y,z,w) quaternion."""
+    x, y, z, w = q.unbind(-1)
+    siny_cosp = 2.0 * (w * z + x * y)
+    cosy_cosp = 1.0 - 2.0 * (y * y + z * z)
+    return torch.atan2(siny_cosp, cosy_cosp)
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """3x3 rotation matrix from (x,y,z,w) quaternion; shape (..., 3, 3)."""
+    q = quat_normalize(q)
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """Exp map: axis-angle vector in R^3 -> (x,y,z,w) unit quaternion."""
+    angle = torch.linalg.vector_norm(phi, dim=-1, keepdim=True)
+    half = 0.5 * angle
+    small = angle < 1e-6
+    k = torch.where(small, 0.5 - angle ** 2 / 48.0,
+                    torch.sin(half) / torch.where(small, 1.0, angle))
+    return torch.cat([phi * k, torch.cos(half)], dim=-1)
+
+
+def masked_update(mask: torch.Tensor, new: torch.Tensor,
+                  old: torch.Tensor) -> torch.Tensor:
+    """where(mask, new, old) with the (B,) mask broadcast over trailing
+    dims: the per-env update primitive of the masked-reset style."""
+    m = mask.reshape(mask.shape + (1,) * (new.ndim - mask.ndim))
+    return torch.where(m, new, old)

@@ -58,6 +58,15 @@ class RomDynamics:
     def proj_z(self, x):
         raise NotImplementedError
 
+    @property
+    def vel_inds(self) -> torch.Tensor:
+        """Boolean mask over z marking velocity-like states."""
+        return torch.zeros(self.n, dtype=torch.bool, device=self.z_min.device)
+
+    def weighting_vector(self, w) -> torch.Tensor:
+        """Per-dim reward weights from a ``RewardWeighting`` config."""
+        raise NotImplementedError
+
     def compute_state_dependent_input_bounds(self, z):
         shape = z.shape[:-1] + (self.m,)
         return self.v_min.expand(shape), self.v_max.expand(shape)
@@ -90,6 +99,10 @@ class SingleInt2D(RomDynamics):
     def proj_z(self, x):
         return x[..., :2]
 
+    def weighting_vector(self, w):
+        return torch.tensor([w.position, w.position], dtype=torch.float32,
+                            device=self.z_min.device)
+
     def f_entries(self, z_e, v_e):
         return [z_e[0] + self.dt * v_e[0], z_e[1] + self.dt * v_e[1]]
 
@@ -112,6 +125,15 @@ class DoubleInt2D(RomDynamics):
 
     def proj_z(self, x):
         return torch.cat([x[..., :2], x[..., 7:9]], dim=-1)
+
+    @property
+    def vel_inds(self):
+        return torch.tensor([False, False, True, True],
+                            device=self.z_min.device)
+
+    def weighting_vector(self, w):
+        return torch.tensor([w.position, w.position, w.velocity, w.velocity],
+                            dtype=torch.float32, device=self.z_min.device)
 
     def compute_state_dependent_input_bounds(self, z):
         """Shrink the accel bounds so velocities stay inside [z_min, z_max]."""

@@ -1,0 +1,19 @@
+from .base import Transition, guard_finite_state
+from .registry import TaskRegistry, task_registry
+from . import presets  # noqa: F401  (registers preset tasks)
+from .legged_robot_trajectory import (
+    LeggedRobotTrajectoryEnv,
+    TrajectoryEnvState,
+)
+from .legged_robot_velocity import LeggedRobotVelocityEnv, VelocityEnvState
+
+__all__ = [
+    "Transition",
+    "guard_finite_state",
+    "TaskRegistry",
+    "task_registry",
+    "LeggedRobotTrajectoryEnv",
+    "TrajectoryEnvState",
+    "LeggedRobotVelocityEnv",
+    "VelocityEnvState",
+]

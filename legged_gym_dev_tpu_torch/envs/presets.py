@@ -1,0 +1,264 @@
+"""Preset task factories encoding the reference robot configurations.
+
+Counterpart of ``legged_gym_dev_tpu/envs/presets.py`` for the legged
+velocity and trajectory tasks: ``make_velocity_env``,
+``make_trajectory_env`` and the ANYmal-C trajectory preset, with the same
+numbers. The hopper, ROM-tracking, Cassie, A1 and rough-terrain presets are
+not ported yet.
+
+The JAX package loads its robots from URDF files that are not in this
+repository; every factory here takes the URDF (a path or a string) from
+its caller instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.rom import make_rom
+from ..rl.ppo import PPOConfig
+from ..sim.contact import ContactParams
+from ..sim.dynamics import RobotModel
+from ..sim.robot_sim import RobotSim
+from ..sim.urdf import parse_urdf
+from ..trajgen.generator import TrajectoryGenerator
+from ..trajgen.samplers import UniformSampleHoldDT, UniformWeightSampler, f32
+from ..utils.runtime import resolve_device
+from .registry import task_registry
+
+# ref a1_config.py:36-50 default joint angles (URDF joint order FR FL RR RL).
+A1_DEFAULT_ANGLES = {
+    "FR_hip_joint": -0.1, "FR_thigh_joint": 0.8, "FR_calf_joint": -1.5,
+    "FL_hip_joint": 0.1, "FL_thigh_joint": 0.8, "FL_calf_joint": -1.5,
+    "RR_hip_joint": -0.1, "RR_thigh_joint": 1.0, "RR_calf_joint": -1.5,
+    "RL_hip_joint": 0.1, "RL_thigh_joint": 1.0, "RL_calf_joint": -1.5,
+}
+
+A1_REWARD_SCALES = (
+    ("tracking_lin_vel", 1.0),
+    ("tracking_ang_vel", 0.5),
+    ("lin_vel_z", -2.0),
+    ("ang_vel_xy", -0.05),
+    ("torques", -0.0002),
+    ("dof_acc", -2.5e-7),
+    ("feet_air_time", 1.0),
+    ("collision", -1.0),
+    ("action_rate", -0.01),
+    ("dof_pos_limits", -10.0),
+    ("termination", -0.0),
+)
+
+
+def make_velocity_env(urdf_path: str, num_envs: int = 4096,
+                      default_angles: dict = A1_DEFAULT_ANGLES,
+                      sim_dt: float = 0.005, sim_decimation: int = 4,
+                      contact=None, p_gain=20.0, d_gain=0.5,
+                      action_scale: float = 0.25, base_height: float = 0.42,
+                      base_height_target: float = 0.25,
+                      foot_name: str = "foot",
+                      penalize_on=("thigh", "calf"),
+                      terminate_on=("base", "trunk"),
+                      reward_scales=A1_REWARD_SCALES,
+                      add_noise: bool = True,
+                      episode_length_s: float = 20.0,
+                      only_positive_rewards: bool = False,
+                      max_contact_force: float = 100.0,
+                      measure_heights: bool = False,
+                      command_curriculum: bool = False,
+                      init_lin_vel_range: float = 1.0,
+                      randomize_friction: bool = True,
+                      friction_range=(0.5, 1.25),
+                      randomize_base_mass: bool = False,
+                      added_mass_range=(-1.0, 1.0),
+                      randomize_contact: bool = False,
+                      contact_mult_range=(0.7, 1.3),
+                      terrain=None, device=None):
+    """Velocity-command task for any URDF robot (path or string)."""
+    from .legged_robot_velocity import (
+        LeggedRobotVelocityEnv,
+        classify_contacts,
+    )
+
+    dev = resolve_device(device)
+    if terrain is not None or measure_heights:
+        raise NotImplementedError("terrain and the height scan are not "
+                                  "ported yet")
+    model = RobotModel.from_spec(parse_urdf(urdf_path))
+    sim = RobotSim.create(
+        model, contact=contact or ContactParams.create(
+            stiffness=5000.0, damping=50.0, device=dev),
+        dt=sim_dt, decimation=sim_decimation, device=dev)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    default_dof = t([default_angles.get(n, 0.0) for n in model.dof_names])
+
+    def _gains(g):
+        """Scalar, or a dict matched by name substring (first key contained
+        in the dof name wins)."""
+        if isinstance(g, dict):
+            vals = []
+            for n in model.dof_names:
+                v = 0.0
+                for k, gv in g.items():
+                    if k in n:
+                        v = float(gv)
+                        break
+                vals.append(v)
+            return t(vals)
+        return t(np.full(model.nj, float(g)))
+
+    feet, pen, term = classify_contacts(model, foot_name, penalize_on,
+                                        terminate_on)
+    nj = model.nj
+    noise_vec = np.concatenate([
+        0.1 * 2.0 * np.ones(3), 0.2 * 0.25 * np.ones(3), 0.05 * np.ones(3),
+        np.zeros(3), 0.01 * np.ones(nj), 1.5 * 0.05 * np.ones(nj),
+        np.zeros(nj)])
+    return LeggedRobotVelocityEnv(
+        sim=sim,
+        default_dof_pos=default_dof,
+        p_gains=_gains(p_gain),
+        d_gains=_gains(d_gain),
+        base_init_pos=t([0.0, 0.0, base_height]),
+        noise_vec=t(noise_vec),
+        command_curriculum=command_curriculum,
+        init_command_ranges=t(
+            [[-init_lin_vel_range, init_lin_vel_range],
+             [-init_lin_vel_range, init_lin_vel_range], [-1.0, 1.0],
+             [-np.pi, np.pi]]),
+        tracking_sigma=f32(0.25),
+        base_height_target=f32(base_height_target),
+        max_contact_force=f32(max_contact_force),
+        only_positive_rewards=only_positive_rewards,
+        soft_dof_vel_limit=1.0,
+        soft_torque_limit=1.0,
+        randomize_friction=randomize_friction,
+        friction_range=tuple(friction_range),
+        randomize_base_mass=randomize_base_mass,
+        added_mass_range=tuple(added_mass_range),
+        randomize_contact=randomize_contact,
+        contact_mult_range=tuple(contact_mult_range),
+        action_scale=action_scale,
+        reward_scales=tuple(reward_scales),
+        feet_spheres=feet,
+        penalized_spheres=pen,
+        termination_spheres=term,
+        add_noise=add_noise,
+        episode_length_s=episode_length_s,
+        num_envs=num_envs,
+    )
+
+
+@dataclasses.dataclass
+class RewardWeighting:
+    """Per-dim tracking-reward weights consumed by each ROM's
+    ``weighting_vector``."""
+
+    position: float = 1.0
+    velocity: float = 1.0
+    orientation: float = 1.0
+    angular_velocity: float = 1.0
+
+
+def make_trajectory_env(urdf_path: str, num_envs: int = 4096,
+                        rom_dt: float = 0.1, vel_max: float = 0.35,
+                        rom_cls: str = "SingleInt2D",
+                        rom_z_min=None, rom_z_max=None,
+                        rom_v_min=None, rom_v_max=None,
+                        reward_weighting: RewardWeighting | None = None,
+                        n_traj: int = 10, dn_traj: int = 1,
+                        t_low: float = 1.0, t_high: float = 2.0,
+                        max_rom_distance=None,
+                        zero_rom_dist_llh: float = 0.25,
+                        reward_scales=None, device=None, **kw):
+    """Trajectory-tracking task for any URDF robot: the velocity env's
+    machinery with the commands replaced by a rolling ROM window.
+    ``device=None`` means the CUDA card."""
+    from ..core.rom import ROM_REGISTRY
+    from .legged_robot_trajectory import LeggedRobotTrajectoryEnv
+
+    dev = resolve_device(device)
+    rom_type = ROM_REGISTRY[rom_cls]
+    rn, rm = rom_type.n, rom_type.m
+    if reward_scales is None:
+        # ANYmal flat-trajectory set (tracking_rom at its nominal 6.0)
+        reward_scales = (
+            ("tracking_rom", 6.0),
+            ("termination", -0.5),
+            ("orientation", -5.0),
+            ("torques", -2.5e-5),
+            ("feet_air_time", 0.5),
+            ("action_rate", -0.01),
+            ("dof_acc", -2.5e-7),
+        )
+    base = make_velocity_env(
+        urdf_path, num_envs=num_envs, reward_scales=reward_scales,
+        only_positive_rewards=kw.pop("only_positive_rewards", False),
+        device=dev, **kw)
+    rom = make_rom(
+        rom_cls, rom_dt,
+        rom_z_min if rom_z_min is not None else [-1e9] * rn,
+        rom_z_max if rom_z_max is not None else [1e9] * rn,
+        rom_v_min if rom_v_min is not None else [-vel_max] * rm,
+        rom_v_max if rom_v_max is not None else [vel_max] * rm,
+        device=dev)
+    gen = TrajectoryGenerator.create(
+        rom, UniformSampleHoldDT.create(t_low, t_high),
+        UniformWeightSampler(),
+        dt_loop=base.dt, N=n_traj, dN=dn_traj, prob_stationary=0.01)
+    weighting = rom.weighting_vector(reward_weighting or RewardWeighting())
+    if max_rom_distance is None:
+        max_rom_distance = (0.1,) * rn
+    nj = base.nj
+    noise_vec = np.concatenate([
+        0.1 * 2.0 * np.ones(3), 0.2 * 0.25 * np.ones(3), 0.05 * np.ones(3),
+        np.zeros(rom.n * n_traj), 0.01 * np.ones(nj),
+        1.5 * 0.05 * np.ones(nj), np.zeros(nj)])
+    fields = {f.name: getattr(base, f.name)
+              for f in dataclasses.fields(base)}
+    fields["noise_vec"] = torch.as_tensor(noise_vec.astype(np.float32),
+                                          device=dev)
+    return LeggedRobotTrajectoryEnv(
+        **fields,
+        traj_gen=gen,
+        reward_weighting=weighting,
+        max_rom_distance=torch.as_tensor(
+            np.asarray(max_rom_distance, np.float32), device=dev),
+        zero_rom_dist_llh=f32(zero_rom_dist_llh),
+    )
+
+
+def _anymal_c_kwargs(kw):
+    """ANYmal-C's robot settings, shared by the velocity and trajectory
+    presets (no reward scales: the trajectory task sets its own)."""
+    kw.setdefault("default_angles", {
+        "LF_HAA": 0.0, "LF_HFE": 0.4, "LF_KFE": -0.8,
+        "RF_HAA": 0.0, "RF_HFE": 0.4, "RF_KFE": -0.8,
+        "LH_HAA": 0.0, "LH_HFE": -0.4, "LH_KFE": 0.8,
+        "RH_HAA": 0.0, "RH_HFE": -0.4, "RH_KFE": 0.8,
+    })
+    kw.setdefault("p_gain", 80.0)
+    kw.setdefault("d_gain", 2.0)
+    kw.setdefault("action_scale", 0.5)
+    kw.setdefault("base_height", 0.6)
+    kw.setdefault("base_height_target", 0.5)
+    kw.setdefault("foot_name", "FOOT")
+    kw.setdefault("penalize_on", ("SHANK", "THIGH"))
+    kw.setdefault("terminate_on", ("base",))
+    return kw
+
+
+def make_anymal_c_trajectory_env(urdf_path: str, **kw):
+    """ANYmal C (or a robot with its joint and link names) on the
+    trajectory-tracking task (flat variant)."""
+    kw = _anymal_c_kwargs(kw)
+    kw.setdefault("max_contact_force", 350.0)
+    return make_trajectory_env(urdf_path, **kw)
+
+
+task_registry.register("anymal_c_trajectory", make_anymal_c_trajectory_env,
+                       PPOConfig())

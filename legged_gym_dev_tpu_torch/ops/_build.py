@@ -70,3 +70,34 @@ def load(source: str) -> ctypes.CDLL:
             path, _ = build(source)
             _loaded[source] = ctypes.CDLL(str(path))
         return _loaded[source]
+
+
+class Kernel:
+    """One CUDA entry point of ``csrc/<source>`` with its launch count (a
+    plain integer the wrappers add one to per launch). The C function takes
+    ``n_ptr`` pointers, ``n_int`` ints and the stream, and returns the
+    CUDA error of the launch."""
+
+    def __init__(self, source: str, symbol: str, n_ptr: int, n_int: int):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                         + [ctypes.c_void_p])
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, ptrs, ints, device):
+        import torch
+
+        if self._fn is None:
+            fn = getattr(load(self.source), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            err = self._fn(*ptrs, *ints, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1

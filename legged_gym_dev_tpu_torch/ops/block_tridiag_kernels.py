@@ -23,8 +23,6 @@ plain PyTorch version beside it. Each kernel counts its launches.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
@@ -32,35 +30,10 @@ from . import _build
 SUPPORTED_B = (3, 4, 5, 6, 7, 8)   # block sizes the CUDA source instantiates
 
 
-class Kernel:
-    """One CUDA entry point of ``csrc/block_tridiag.cu`` with its launch
-    count (a plain integer the wrappers add one to per launch)."""
-
-    def __init__(self, symbol: str, n_ptr: int, n_int: int):
-        self.symbol = symbol
-        self.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                         + [ctypes.c_void_p])
-        self.launches = 0
-        self._fn = None
-
-    def __call__(self, ptrs, ints, device):
-        if self._fn is None:
-            fn = getattr(_build.load("block_tridiag.cu"), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
-            err = self._fn(*ptrs, *ints, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
-                               f"{err}")
-        self.launches += 1
-
-
-BT_SOLVE = Kernel("bt_solve", n_ptr=5, n_int=3)
-BT_FACTOR = Kernel("bt_factor", n_ptr=3, n_int=3)
-BT_MSOLVE = Kernel("bt_msolve", n_ptr=4, n_int=4)
+SOURCE = "block_tridiag.cu"
+BT_SOLVE = _build.Kernel(SOURCE, "bt_solve", n_ptr=5, n_int=3)
+BT_FACTOR = _build.Kernel(SOURCE, "bt_factor", n_ptr=3, n_int=3)
+BT_MSOLVE = _build.Kernel(SOURCE, "bt_msolve", n_ptr=4, n_int=4)
 KERNELS = {"bt_solve": BT_SOLVE, "bt_factor": BT_FACTOR,
            "bt_msolve": BT_MSOLVE}
 

@@ -1,0 +1,110 @@
+"""Assembled batched robot simulator: dynamics + contact + actuation.
+
+Counterpart of ``legged_gym_dev_tpu/sim/robot_sim.py``. A ``RobotSim``
+holds the model and the contact, spring and limit parameters:
+
+    state' = sim.substep(state, tau)                   # one physics step
+    state' = sim.step(state, torque_fn)                # decimation substeps
+    state', carry = sim.step_with_carry(state, carry, torque_fn)
+
+``substep`` launches the CUDA kernel for CUDA tensors and runs its plain
+version for CPU tensors (``ops/substep_kernels.py``); there is no switch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..ops import substep_kernels
+from ..utils.runtime import resolve_device
+from .contact import ContactParams, flat_terrain
+from .dynamics import RobotModel, RobotState
+
+
+@dataclasses.dataclass
+class JointSprings:
+    """Passive per-joint spring/damper to a setpoint (hopper foot spring)."""
+
+    stiffness: torch.Tensor   # (nj,)
+    damping: torch.Tensor     # (nj,)
+    setpoint: torch.Tensor    # (nj,)
+
+    @classmethod
+    def zero(cls, nj: int, device=None):
+        dev = resolve_device(device)
+        return cls(*(torch.zeros(nj, device=dev) for _ in range(3)))
+
+
+@dataclasses.dataclass
+class RobotSim:
+    model: RobotModel
+    contact: ContactParams
+    springs: JointSprings
+    # Optional per-env payload mass on the base body (B,) (domain
+    # randomization); per-env friction rides through ``contact.friction``
+    # shaped (B, 1, 1).
+    base_mass_delta: Optional[torch.Tensor] = None
+    dt: float = 0.005
+    decimation: int = 4
+    terrain_fn: Callable = flat_terrain
+    joint_limit_stiffness: float = 1000.0
+    joint_limit_damping: float = 10.0
+    # Base linear/angular velocity cap (Isaac Gym's max_linear/
+    # angular_velocity = 1000): keeps a contact blow-up from overflowing to
+    # inf within one decimated step.
+    base_vel_limit: float = 1000.0
+
+    def replace(self, **kw) -> "RobotSim":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.springs.stiffness.device
+
+    @classmethod
+    def create(cls, model, contact=None, springs=None, dt=0.005,
+               decimation=4, terrain_fn=flat_terrain, device=None, **kw):
+        dev = resolve_device(device)
+        return cls(
+            model=model,
+            contact=contact or ContactParams.create(device=dev),
+            springs=springs or JointSprings.zero(model.nj, device=dev),
+            dt=float(dt), decimation=int(decimation), terrain_fn=terrain_fn,
+            **kw)
+
+    def default_state(self, batch: int, base_pos=(0.0, 0.0, 1.0),
+                      q: Optional[torch.Tensor] = None) -> RobotState:
+        nj, dev = self.model.nj, self.device
+        return RobotState(
+            base_pos=torch.as_tensor(np.asarray(base_pos, np.float32),
+                                     device=dev).expand(batch, 3).clone(),
+            base_quat=torch.tensor([0.0, 0.0, 0.0, 1.0],
+                                   device=dev).expand(batch, 4).clone(),
+            q=(torch.zeros((batch, nj), device=dev) if q is None
+               else torch.as_tensor(q, dtype=torch.float32, device=dev)
+               .expand(batch, nj).clone()),
+            v=torch.zeros((batch, 6 + nj), device=dev),
+        )
+
+    def substep(self, state: RobotState, tau: torch.Tensor) -> RobotState:
+        """One physics step at self.dt with applied joint torques tau."""
+        return substep_kernels.substep(self, state, tau)
+
+    def step(self, state: RobotState,
+             torque_fn: Callable[[RobotState], torch.Tensor]) -> RobotState:
+        """Decimated control step: torques recomputed every substep."""
+        for _ in range(self.decimation):
+            state = self.substep(state, torque_fn(state))
+        return state
+
+    def step_with_carry(self, state: RobotState, carry,
+                        torque_fn: Callable) -> tuple:
+        """Decimated step with a stateful torque controller:
+        ``torque_fn(carry, robot) -> (carry, tau)``."""
+        for _ in range(self.decimation):
+            carry, tau = torque_fn(carry, state)
+            state = self.substep(state, tau)
+        return state, carry

@@ -1,0 +1,51 @@
+"""Hold-time and mode-weight samplers for the trajectory generator.
+
+Counterpart of ``legged_gym_dev_tpu/trajgen/samplers.py``. Stateless: a
+sampler draws from the ``torch.Generator`` it is handed. Scalars are held
+at their float32 values (the JAX leaves are float32), and differences of
+them are taken in float32, so the arithmetic matches the JAX package's.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def f32(x) -> float:
+    """A Python float holding x's float32 value."""
+    return float(np.float32(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformSampleHoldDT:
+    """Uniform hold-time sampler."""
+
+    t_low: float
+    t_high: float
+
+    @classmethod
+    def create(cls, t_low: float, t_high: float) -> "UniformSampleHoldDT":
+        return cls(t_low=f32(t_low), t_high=f32(t_high))
+
+    def sample_from_unit(self, u: torch.Tensor) -> torch.Tensor:
+        """Transform pre-drawn unit uniforms."""
+        return self.t_low + u * f32(np.float32(self.t_high)
+                                    - np.float32(self.t_low))
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformWeightSampler:
+    """Weights over (sample-hold, ramp, extreme, sinusoid): U(0,1)^4 times
+    a per-mode mask, normalized onto the simplex."""
+
+    mask: tuple = (1.0, 1.0, 1.0, 1.0)
+
+    def sample(self, gen: torch.Generator, batch: int,
+               device) -> torch.Tensor:
+        w = torch.rand((batch, 4), generator=gen, device=device)
+        w = w * torch.tensor(self.mask, dtype=torch.float32,
+                             device=device)[None, :]
+        return w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-8)
+

@@ -1,0 +1,200 @@
+"""The port's ROM-trajectory task on the quadruped of
+tests/torch_robot_cases.py against the JAX package's, built by both
+packages' ``make_trajectory_env`` with ANYmal-C's settings at B=8.
+
+One env step from a carried-over JAX state: the JAX env is reset and
+stepped twice with its own random draws; its state goes to the port as
+numpy (``interop.env_state_from_numpy``); both take one step with the
+same actions, observation noise off and the next push moved past the
+step. Envs that reset, or whose trajectory mode expires (new random draws
+the two RNGs cannot match), are left out. Tolerance: rtol=atol=1e-4 on
+state, observations and reward (one env step chains 4 substeps, each held
+to 2e-5 in tests/test_torch_substep.py); ``done`` exactly.
+
+The JAX step is compiled once for the module (about a minute on the CPU).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from legged_gym_dev_tpu.envs.presets import _anymal_c_kwargs as jax_kwargs
+from legged_gym_dev_tpu.envs.presets import (
+    make_trajectory_env as jax_make_trajectory_env,
+)
+from legged_gym_dev_tpu_torch.envs import registry
+from legged_gym_dev_tpu_torch.envs.presets import (
+    _anymal_c_kwargs,
+    make_trajectory_env,
+)
+from legged_gym_dev_tpu_torch.interop import env_state_from_numpy
+from tests.torch_robot_cases import QUADRUPED_URDF
+
+B = 8
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def envs():
+    kw = dict(max_contact_force=350.0, num_envs=B, add_noise=False)
+    jenv = jax_make_trajectory_env(QUADRUPED_URDF, **jax_kwargs({}), **kw)
+    tenv = make_trajectory_env(QUADRUPED_URDF, **_anymal_c_kwargs({}),
+                               device="cpu", **kw)
+    return jenv, tenv, jax.jit(jenv.step)
+
+
+@pytest.fixture(scope="module")
+def carried(envs):
+    """The JAX state after a reset and two steps, next push past the
+    coming step."""
+    jenv, _, jstep = envs
+    rng = np.random.default_rng(0)
+    js, _ = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
+    for _ in range(2):
+        js, _ = jstep(js, jnp.asarray(rng.normal(0, 0.5, (B, 12)),
+                                      jnp.float32))
+    # (same aval as the field, so the jitted step is not traced again)
+    return js.replace(time_until_next_push=js.time_until_next_push * 0.0
+                      + 100.0)
+
+
+def test_env_matches_the_jax_preset(envs):
+    jenv, tenv, _ = envs
+    assert tenv.num_obs == jenv.num_obs == 65
+    assert (tenv.feet_spheres, tenv.penalized_spheres,
+            tenv.termination_spheres) == (jenv.feet_spheres,
+                                          jenv.penalized_spheres,
+                                          jenv.termination_spheres)
+    assert tenv.reward_scales == jenv.reward_scales
+    for name in ("default_dof_pos", "p_gains", "d_gains", "base_init_pos",
+                 "noise_vec", "init_command_ranges", "reward_weighting",
+                 "max_rom_distance"):
+        np.testing.assert_array_equal(getattr(tenv, name).numpy(),
+                                      np.asarray(getattr(jenv, name)),
+                                      err_msg=name)
+    assert (tenv.dt, tenv.max_episode_length) == (jenv.dt,
+                                                  jenv.max_episode_length)
+    assert tenv.traj_gen.dt_loop == float(jenv.traj_gen.dt_loop)
+
+
+def test_one_step_matches_jax(envs, carried):
+    jenv, tenv, jstep = envs
+    js = carried
+    actions = np.random.default_rng(1).normal(0, 0.5, (B, 12)).astype(
+        np.float32)
+    ts = env_state_from_numpy(jax.tree.map(np.asarray, js), tenv,
+                              torch.Generator().manual_seed(0))
+    tg = js.traj_gen
+    expired = np.asarray(tg.t > tg.t_final)
+
+    js2, jtr = jstep(js, jnp.asarray(actions))
+    ts2, ttr = tenv.step(ts, torch.as_tensor(actions))
+
+    done_j = np.asarray(jtr.done)
+    np.testing.assert_array_equal(ttr.done.numpy(), done_j)
+    keep = ~done_j & ~expired
+    assert keep.sum() >= B - 3, (done_j, expired)
+    for f in ("base_pos", "base_quat", "q", "v"):
+        np.testing.assert_allclose(getattr(ts2.robot, f).numpy()[keep],
+                                   np.asarray(getattr(js2.robot, f))[keep],
+                                   err_msg=f, **TOL)
+    np.testing.assert_allclose(ttr.obs.numpy()[keep],
+                               np.asarray(jtr.obs)[keep], **TOL)
+    np.testing.assert_allclose(ttr.reward.numpy()[keep],
+                               np.asarray(jtr.reward)[keep], **TOL)
+    for f in ("torques", "feet_air_time", "prev_error", "trajectory"):
+        np.testing.assert_allclose(getattr(ts2, f).numpy()[keep],
+                                   np.asarray(getattr(js2, f))[keep],
+                                   err_msg=f, **TOL)
+    np.testing.assert_array_equal(ts2.last_contacts.numpy()[keep],
+                                  np.asarray(js2.last_contacts)[keep])
+
+
+def test_blown_up_env_is_force_terminated(envs, carried):
+    """A NaN in one env's state: that env terminates and resets, and no
+    NaN reaches the observations or rewards of any env."""
+    _, tenv, _ = envs
+    ts = env_state_from_numpy(jax.tree.map(np.asarray, carried), tenv)
+    v = ts.robot.v.clone()
+    v[3, 8] = float("nan")
+    ts = ts.replace(robot=ts.robot.replace(v=v))
+    ts2, tr = tenv.step(ts, torch.zeros(B, 12))
+    assert bool(tr.done[3])
+    assert bool(torch.isfinite(tr.obs).all())
+    assert bool(torch.isfinite(tr.reward).all())
+    assert bool(torch.isfinite(ts2.robot.v).all())
+
+
+def test_reset_and_registry():
+    env = registry.make_env("anymal_c_trajectory", urdf_path=QUADRUPED_URDF,
+                            num_envs=4, device="cpu")
+    state, obs = env.reset(torch.Generator().manual_seed(0))
+    assert obs.shape == (4, 65) and bool(torch.isfinite(obs).all())
+    # the trajectory block is the window relative to the robot's position
+    rel = state.trajectory - state.robot.base_pos[:, None, :2]
+    torch.testing.assert_close(obs[:, 9:29], rel.reshape(4, -1))
+    assert registry.get("anymal_c_trajectory").train_cfg.num_steps == 24
+    with pytest.raises(ValueError):
+        registry.get("no_such_task")
+
+
+def test_unported_options_raise():
+    kw = dict(num_envs=2, device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_trajectory_env(QUADRUPED_URDF, measure_heights=True, **kw)
+    env = make_trajectory_env(QUADRUPED_URDF, **kw)
+    with pytest.raises(NotImplementedError):
+        env.replace(actuator_net=object())
+
+
+ALL_TERMS = ("lin_vel_z", "ang_vel_xy", "orientation", "base_height",
+             "torques", "dof_vel", "dof_acc", "action_rate", "collision",
+             "termination", "dof_pos_limits", "dof_vel_limits",
+             "torque_limits", "tracking_lin_vel", "tracking_ang_vel",
+             "feet_air_time", "stumble", "stand_still", "no_fly",
+             "feet_contact_forces", "tracking_rom", "differential_error")
+
+
+def test_reward_table_matches_jax(envs, carried):
+    """Every reward term of the velocity table and the trajectory task's
+    own terms, on the carried state with random contact forces."""
+    jenv, tenv, _ = envs
+    rng = np.random.default_rng(4)
+    nc = len(tenv.sim.model.contact_body)
+    f = rng.normal(0, 40.0, (B, nc, 3)).astype(np.float32)
+    term = rng.uniform(size=B) < 0.3
+    first = (rng.uniform(size=(B, 4)) < 0.5).astype(np.float32)
+    air = rng.uniform(0, 1, (B, 4)).astype(np.float32)
+    ts = env_state_from_numpy(jax.tree.map(np.asarray, carried), tenv)
+    rj = jenv._rewards(carried, carried.robot, jnp.asarray(f),
+                       jnp.asarray(term), jnp.asarray(first),
+                       jnp.asarray(air), names=list(ALL_TERMS))
+    rt = tenv._rewards(ts, ts.robot, torch.as_tensor(f),
+                       torch.as_tensor(term), torch.as_tensor(first),
+                       torch.as_tensor(air), names=list(ALL_TERMS))
+    assert list(rt) == list(rj)
+    for k in ALL_TERMS:
+        np.testing.assert_allclose(rt[k].numpy(), np.asarray(rj[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def test_velocity_task_steps():
+    """The velocity task on the quadruped: reset, two steps with command
+    resampling, the heading controller and a push, all finite."""
+    from legged_gym_dev_tpu_torch.envs.presets import make_velocity_env
+
+    env = make_velocity_env(QUADRUPED_URDF, **_anymal_c_kwargs({}),
+                            num_envs=4, device="cpu").replace(
+        push_interval_s=0.02, resampling_time_s=0.02)
+    gen = torch.Generator().manual_seed(0)
+    state, obs = env.reset(gen)
+    assert obs.shape == (4, env.num_obs) == (4, 48)
+    cmd0 = state.commands
+    for _ in range(2):
+        state, tr = env.step(state, torch.zeros(4, 12))
+        assert bool(torch.isfinite(tr.obs).all())
+        assert bool(torch.isfinite(tr.reward).all())
+    assert not torch.equal(state.commands[:, :2], cmd0[:, :2])
+    assert bool((state.commands[:, 2].abs() <= 1.0).all())

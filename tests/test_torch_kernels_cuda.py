@@ -1,8 +1,8 @@
-"""The port's CUDA kernels (csrc/block_tridiag.cu) on the card against their
-plain PyTorch versions, at small shapes, at the main path's shapes and at a
-batch that is not a multiple of the 64-thread block (the ragged edge).
-Tolerance: max |kernel - plain| / max |plain| <= 1e-4 (fp32; the two sum in
-different orders).
+"""The port's CUDA kernels (csrc/block_tridiag.cu, csrc/substep.cu) on the
+card against their plain PyTorch versions, at small shapes, at the main
+path's shapes and at a batch that is not a multiple of the thread block
+(the ragged edge). Tolerance: max |kernel - plain| / max |plain| <= 1e-4
+(fp32; the two sum in different orders, and nvcc contracts into FMA).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and PyTorch alone (``--noconftest`` skips tests/conftest.py,
@@ -13,11 +13,16 @@ which sets JAX up):
 Without a card every test skips (the kernels have no CPU mode). The SPD
 system builders here are shared with the CPU parity tests.
 """
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
 
 SMALL = [(8, 12, 5), (16, 51, 5), (4, 6, 3)]
 
@@ -94,3 +99,48 @@ def test_launch_counts(card):
     btk.block_tridiag_multirhs_entries_plain(Dt, Lt, cols, 5)
     torch.cuda.synchronize()
     assert btk.launches() == {"bt_solve": 1, "bt_factor": 1, "bt_msolve": 1}
+
+
+def robot_cases():
+    """tests/torch_robot_cases.py loaded by path (another installed package
+    may own the name ``tests``)."""
+    name = "torch_robot_cases"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, Path(__file__).resolve().parent / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["quadruped", "hopper4"])
+@pytest.mark.parametrize("B,dr", [(4096, True), (1000, False), (5, True)])
+def test_substep_matches_plain_on_card(card, robot, B, dr):
+    """K3 against its plain version on both test robots, with and without
+    per-env DR rows, at the rollout's width and ragged widths."""
+    rc = robot_cases()
+    inp = rc.substep_inputs(robot, B, seed=B, dr=dr)
+    sim = rc.torch_sim(robot, card, inp)
+    st, tau = rc.torch_state(inp, card)
+    sk.reset_launches()
+    out = sk.substep(sim, st, tau)
+    ref = sk.substep_plain(sim, st, tau)
+    torch.cuda.synchronize()
+    assert sk.launches() == {"substep": 1}
+    for name in ("base_pos", "base_quat", "q", "v"):
+        assert rel(getattr(out, name), getattr(ref, name)) <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_substep_keeps_nan_on_card(card):
+    """A NaN env stays NaN through the kernel (clamps and the contact
+    force keep it), and the other envs stay finite."""
+    rc = robot_cases()
+    inp = rc.substep_inputs("quadruped", 64, seed=0, dr=True)
+    inp["v"][5, 9] = np.nan
+    sim = rc.torch_sim("quadruped", card, inp)
+    out = sk.substep(sim, *rc.torch_state(inp, card))
+    finite = torch.isfinite(out.v).all(-1).cpu()
+    assert not bool(finite[5]) and int(finite.sum()) == 63

@@ -38,7 +38,8 @@ def _port_files():
     """The package, chip_smoke.py and the card tests, which run on a
     machine without JAX."""
     return sorted(PACKAGE.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py",
+        ROOT / "tests" / "torch_robot_cases.py"]
 
 
 def _imported_modules(path):
@@ -63,7 +64,10 @@ def test_scan_sees_the_whole_port():
     files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for needed in ("chip_smoke.py",
                    "legged_gym_dev_tpu_torch/solver/staged_scalar.py",
-                   "legged_gym_dev_tpu_torch/ops/block_tridiag_kernels.py"):
+                   "legged_gym_dev_tpu_torch/ops/block_tridiag_kernels.py",
+                   "legged_gym_dev_tpu_torch/ops/substep_kernels.py",
+                   "legged_gym_dev_tpu_torch/sim/urdf.py",
+                   "tests/torch_robot_cases.py"):
         assert needed in files
     # the resolver turns a relative import into its absolute module
     assert ("legged_gym_dev_tpu_torch.ops.block_tridiag_kernels"
@@ -113,3 +117,24 @@ def test_entry_points_raise_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mlp_from_numpy([np.eye(2, dtype=np.float32)],
                        [np.zeros(2, np.float32)])
+
+
+def test_rl_entry_points_raise_without_card(monkeypatch):
+    """The RL slice's entry points, called without ``device``, raise on a
+    machine with no card."""
+    from legged_gym_dev_tpu_torch.envs.presets import make_trajectory_env
+    from legged_gym_dev_tpu_torch.sim.contact import ContactParams
+    from legged_gym_dev_tpu_torch.sim.dynamics import RobotModel
+    from legged_gym_dev_tpu_torch.sim.robot_sim import RobotSim
+    from legged_gym_dev_tpu_torch.sim.urdf import parse_urdf
+    from tests.torch_robot_cases import HOPPER4_URDF, QUADRUPED_URDF
+
+    _no_card(monkeypatch)
+    model = RobotModel.from_spec(parse_urdf(HOPPER4_URDF))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RobotSim.create(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_trajectory_env(QUADRUPED_URDF, num_envs=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContactParams.create()
+    assert RobotSim.create(model, device="cpu").device.type == "cpu"

@@ -1,0 +1,141 @@
+"""The plain version of the physics-substep kernel (K3) against the JAX
+package: its XLA path (``RobotSim.substep``) and its Pallas kernel run in
+interpret mode (``pallas_substep(..., interpret=True)``), on both test
+robots, with and without per-env DR (base payload mass, contact stiffness
+and damping multipliers, friction). Single steps only: chained traces
+diverge through contact. Tolerance rtol=atol=2e-5, the JAX package's own
+bar between those two paths (tests/test_pallas_substep.py:38).
+
+The CUDA kernel itself runs only on a card
+(tests/test_torch_kernels_cuda.py, chip_smoke.py); here the wrapper's
+layout helpers and its CPU routing are checked.
+"""
+import numpy as np
+import pytest
+import torch
+
+from legged_gym_dev_tpu.ops.pallas_substep import pallas_substep
+from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+from tests.torch_port_cases import jax_robot_sim, jax_robot_state
+from tests.torch_robot_cases import (
+    ROBOTS,
+    substep_inputs,
+    torch_sim,
+    torch_state,
+)
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+FIELDS = ("base_pos", "base_quat", "q", "v")
+CASES = [(r, dr) for r in sorted(ROBOTS) for dr in (False, True)]
+
+
+def _ids(case):
+    return f"{case[0]}-{'dr' if case[1] else 'nominal'}"
+
+
+def _compare(out, ref):
+    for f in FIELDS:
+        np.testing.assert_allclose(getattr(out, f).numpy(),
+                                   np.asarray(getattr(ref, f)), err_msg=f,
+                                   **TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_plain_substep_matches_jax(case):
+    robot, dr = case
+    inp = substep_inputs(robot, 16, seed=3, dr=dr)
+    st, tau = torch_state(inp)
+    out = torch_sim(robot, "cpu", inp).substep(st, tau)
+    ref = jax_robot_sim(robot, inp).substep(*jax_robot_state(inp))
+    _compare(out, ref)
+    # the draw exercises contact and moves every coordinate
+    assert not np.allclose(out.v.numpy(), inp["v"])
+
+
+# The quadruped's interpret-mode kernel takes about a minute on the CPU,
+# so it is held with DR on (the richer case); the 4-joint robot both ways.
+@pytest.mark.parametrize("case", [("hopper4", False), ("hopper4", True),
+                                  ("quadruped", True)], ids=_ids)
+def test_plain_substep_matches_pallas_interpret(case):
+    robot, dr = case
+    inp = substep_inputs(robot, 16, seed=3, dr=dr)
+    st, tau = torch_state(inp)
+    out = torch_sim(robot, "cpu", inp).substep(st, tau)
+    ref = pallas_substep(jax_robot_sim(robot, inp), *jax_robot_state(inp),
+                         block=16, interpret=True)
+    _compare(out, ref)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    inp = substep_inputs("hopper4", 4, seed=0)
+    sim = torch_sim("hopper4", "cpu", inp)
+    st, tau = torch_state(inp)
+    sk.reset_launches()
+    out = sk.substep(sim, st, tau)
+    ref = sk.substep_plain(sim, st, tau)
+    assert sk.launches() == {"substep": 0}
+    for f in FIELDS:
+        torch.testing.assert_close(getattr(out, f), getattr(ref, f),
+                                   rtol=0, atol=0)
+
+
+def test_other_devices_raise():
+    inp = substep_inputs("hopper4", 2, seed=0)
+    sim = torch_sim("hopper4", "cpu", inp)
+    st, tau = torch_state(inp)
+    meta = type(st)(*(getattr(st, f).to("meta") for f in FIELDS))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        sk.substep(sim, meta, tau.to("meta"))
+
+
+def test_blown_up_env_stays_non_finite():
+    """A NaN in one env's state stays NaN through the substep (the env's
+    guard_finite_state relies on it) and does not leak into the others."""
+    inp = substep_inputs("quadruped", 4, seed=1, dr=True)
+    inp["v"][2, 9] = np.nan
+    st, tau = torch_state(inp)
+    out = torch_sim("quadruped", "cpu", inp).substep(st, tau)
+    assert not bool(torch.isfinite(out.v[2]).all())
+    assert bool(torch.isfinite(out.v[[0, 1, 3]]).all())
+
+
+@pytest.mark.parametrize("robot", sorted(ROBOTS))
+def test_packed_model_layout(robot):
+    """The all-float model struct of csrc/substep.cu: its size for this
+    robot's joint count, and the fields the kernel reads by offset."""
+    sim = torch_sim(robot, "cpu")
+    m = sim.model
+    nj, nb = m.nj, m.nb
+    p = sk.pack_model(sim)
+    per_joint = 1 + 1 + 3 + 9 + 3 + 7      # parent, jtype, ..., springs
+    size = (nj * per_joint + nb * (1 + 1 + 3 + 9) + 3 + 1 + 4 + 1
+            + sk.MAX_NC * 5)
+    assert p.size == size
+    np.testing.assert_array_equal(p[:nj], np.asarray(m.parent, np.float32))
+    anc = p[2 * nj:2 * nj + nb].astype(int)
+    assert anc[0] == 0 and all(anc[j + 1] >> j & 1 for j in range(nj))
+    off = 2 * nj + nb + nj * 15 + nb * 13 + 3
+    assert p[off] == np.float32(m.mass.sum())          # total mass
+    off += 1 + 7 * nj
+    np.testing.assert_array_equal(
+        p[off:off + 4], np.asarray([sim.joint_limit_stiffness,
+                                    sim.joint_limit_damping,
+                                    sim.base_vel_limit, sim.dt], np.float32))
+    assert p[off + 4] == len(m.contact_body)
+
+
+def test_dr_rows_broadcast_as_the_tpu_kernel():
+    """Scalar, (B,1) and (B,1,1) contact parameters become (nc, B) rows;
+    the payload row comes first and the slip row last."""
+    B = 6
+    inp = substep_inputs("quadruped", B, seed=2, dr=True)
+    sim = torch_sim("quadruped", "cpu", inp)
+    nc = len(sim.model.contact_body)
+    rows = sk.dr_rows(sim, B, torch.device("cpu"))
+    assert rows.shape == (1 + 3 * nc + 1, B)
+    np.testing.assert_allclose(rows[0].numpy(), inp["base_mass"])
+    np.testing.assert_allclose(rows[1].numpy(),
+                               5000.0 * inp["stiff_mult"][:, 0], rtol=1e-6)
+    np.testing.assert_allclose(rows[1 + 2 * nc + nc - 1].numpy(),
+                               inp["friction"][:, 0, 0])
+    np.testing.assert_allclose(rows[-1].numpy(), np.full(B, 0.1, np.float32))

@@ -97,3 +97,42 @@ def torch_params(case):
         *ROM_ARGS, case["N"], case["H_rev"], 10 * np.eye(2), 10 * np.eye(2),
         case["z0"], case["zf"], case["obs_c"], case["obs_r"], Qw=case["Qw"],
         w_max=1.0, tube_params=nn, device="cpu")
+
+
+def jax_robot_sim(robot, inputs=None):
+    """The JAX package's ``RobotSim`` of a test robot
+    (``tests/torch_robot_cases.py``), on its XLA substep path, with DR
+    ``inputs`` applied as ``torch_robot_cases.torch_sim`` applies them."""
+    from legged_gym_dev_tpu.sim.contact import ContactParams
+    from legged_gym_dev_tpu.sim.dynamics import RobotModel
+    from legged_gym_dev_tpu.sim.robot_sim import JointSprings, RobotSim
+    from legged_gym_dev_tpu.sim.urdf import parse_urdf
+    from tests.torch_robot_cases import ROBOTS
+
+    cfg = ROBOTS[robot]
+    model = RobotModel.from_spec(parse_urdf(cfg["urdf"]))
+    springs = None
+    if cfg["springs"] is not None:
+        springs = JointSprings(**{k: jnp.asarray(v, jnp.float32)
+                                  for k, v in cfg["springs"].items()})
+    c = ContactParams.create(**cfg["contact"])
+    sim = RobotSim.create(model, contact=c, springs=springs, dt=cfg["dt"],
+                          decimation=cfg["decimation"],
+                          use_pallas_substep=False)
+    if inputs is not None and "friction" in inputs:
+        sim = sim.replace(
+            contact=c.replace(
+                friction=jnp.asarray(inputs["friction"]),
+                stiffness=c.stiffness * jnp.asarray(inputs["stiff_mult"]),
+                damping=c.damping * jnp.asarray(inputs["damp_mult"])),
+            base_mass_delta=jnp.asarray(inputs["base_mass"]))
+    return sim
+
+
+def jax_robot_state(inputs):
+    """(RobotState, tau) of ``torch_robot_cases.substep_inputs`` in JAX."""
+    from legged_gym_dev_tpu.sim.dynamics import RobotState
+
+    return (RobotState(*(jnp.asarray(inputs[k]) for k in
+                         ("base_pos", "base_quat", "q", "v"))),
+            jnp.asarray(inputs["tau"]))
