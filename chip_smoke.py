@@ -8,10 +8,11 @@ Runs on one CUDA card (an H100 for the recorded numbers):
 3. kernel phase: holds each kernel against its plain PyTorch version on
    random well-conditioned SPD block-tridiagonal systems at the main
    path's shapes (S=51, b=5; B=2048 single-RHS, B=1024 with R=50 and
-   B=2048 with R=51 multi-RHS) and times kernel, plain version and a
-   library yardstick (``torch.linalg.solve`` / ``cholesky`` /
-   ``cholesky_solve`` on the assembled banded system; the port never
-   calls these);
+   B=2048 with R=51 multi-RHS) and times kernel (through its wrapper
+   and alone, as a multiple of its bound), plain version and a library
+   yardstick (``torch.linalg.solve`` / ``cholesky`` / ``cholesky_solve``
+   on the assembled banded system; the port never calls these); the build
+   report's registers, spills and shared memory per kernel are printed;
 4. main path, through the port's entry points, on bench.py's randomised
    ``gap`` batch: l1 at B=2048 and NN_oneshot (130->128->128->50 softplus
    MLP, random weights from a seed) at B=1024, N=50, with the
@@ -45,6 +46,7 @@ debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl).
 import argparse
 import concurrent.futures
 import json
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +73,32 @@ REPLACES = {
 }
 TOL_REL = 1e-4   # kernel vs plain version: max |diff| / max |plain|
 B_RL = 4096      # envs of the RL rollout and of the substep check
+
+
+def ptxas_summary(report):
+    """Registers, stack, spills and static shared memory per kernel from
+    nvcc's ``-Xptxas -v`` report: {mangled name: dict}."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def check(cond, msg):
@@ -184,15 +212,18 @@ def kernel_phase(dev):
     rec = {}
 
     def entries(D, L):
-        Df = [[D[:, :, i, j] for j in range(b)] for i in range(b)]
-        Lf = [[L[:, :, i, j] for j in range(b)] for i in range(b)]
+        """Contiguous (B, T) entries, as the solver hands them over."""
+        Df = [[D[:, :, i, j].contiguous() for j in range(b)]
+              for i in range(b)]
+        Lf = [[L[:, :, i, j].contiguous() for j in range(b)]
+              for i in range(b)]
         return Df, Lf
 
     # -- bt_solve through the entry-form wrapper (K1), B = 2048 and 1024
     for B in (B_L1, B_NN):
         D, L, rhs = spd_systems(B, S, b, 1, seed=B, dev=dev)
         Df, Lf = entries(D, L)
-        r = [rhs[:, :, i, 0] for i in range(b)]
+        r = [rhs[:, :, i, 0].contiguous() for i in range(b)]
         x = torch.stack(btk.block_tridiag_solve_entries(Df, Lf, r, b), -1)
         x_pl = torch.stack(
             btk.block_tridiag_solve_entries_plain(Df, Lf, r, b), -1)
@@ -205,10 +236,8 @@ def kernel_phase(dev):
             continue
         ms = time_ms(lambda: btk.block_tridiag_solve_entries(Df, Lf, r, b),
                      20)
-        Dt = btk._stage_major(btk._lower(Df, b), B, S, dev)
-        Lt = btk._stage_major(btk._flat(Lf, b), B, S - 1, dev)
-        rt = btk._stage_major(r, B, S, dev)
-        k_ms = time_ms(lambda: btk._launch_solve(Dt, Lt, rt, S, B, b), 20)
+        args, _ = btk.prepare_solve_entries(Df, Lf, r, b)
+        k_ms = time_ms(lambda: btk._launch_solve(args, S, B, b, dev), 50)
         p_ms = time_ms(
             lambda: btk.block_tridiag_solve_entries_plain(Df, Lf, r, b), 3,
             warmup=1)
@@ -218,13 +247,17 @@ def kernel_phase(dev):
         x_lib = torch.linalg.solve(K, rhs_d).reshape(B, S, b)
         lib_ax, _ = errs(x, x_lib)
         bms, by = bound("bt_solve", S, b, B)
-        print(f"[kernels] bt_solve B={B}: wrapper {ms:.4f} ms, kernel alone "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.linalg.solve "
-              f"{lib_ms:.4f} ms (|kernel-library|={lib_ax:.2e}), bound "
-              f"{bms:.4f} ms ({by})")
+        print(f"[kernels] bt_solve B={B}: wrapper {ms:.4f} ms "
+              f"({ms / bms:.1f}x bound), kernel alone {k_ms:.4f} ms "
+              f"({k_ms / bms:.1f}x bound), plain {p_ms:.4f} ms, "
+              f"torch.linalg.solve {lib_ms:.4f} ms "
+              f"(|kernel-library|={lib_ax:.2e}), bound {bms:.4f} ms ({by}), "
+              f"shared memory {btk.solve_smem_bytes(S, b)} B a block")
         rec["bt_solve"] = dict(max_abs_err=ax, ms=ms, kernel_only_ms=k_ms,
                                plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                               library_ms=lib_ms, shape=[B, S, b])
+                               library_ms=lib_ms, x_bound=ms / bms,
+                               kernel_only_x_bound=k_ms / bms,
+                               shape=[B, S, b])
         del K
 
         # -- the array-form wrapper over the same kernel (K1b)
@@ -249,14 +282,13 @@ def kernel_phase(dev):
     for B, R in ((B_NN, N), (B_L1, N + 1)):
         D, L, rhs = spd_systems(B, S, b, R, seed=B + R, dev=dev)
         Df, Lf = entries(D, L)
-        cols = [rhs[:, :, i, :] for i in range(b)]
+        cols = [rhs[:, :, i, :].contiguous() for i in range(b)]
         x = torch.stack(btk.block_tridiag_multirhs_entries(Df, Lf, cols, b),
                         2)
         x_pl = torch.stack(
             btk.block_tridiag_multirhs_entries_plain(Df, Lf, cols, b), 2)
-        Dt = btk._stage_major(btk._lower(Df, b), B, S, dev)
-        Lt = btk._stage_major(btk._flat(Lf, b), B, S - 1, dev)
-        chol = torch.empty(S, b * (b + 1) // 2, B, device=dev)
+        Dt, Lt, chol, rargs, xo = btk.prepare_multirhs_entries(Df, Lf, cols,
+                                                               b)
 
         def factor():
             btk.BT_FACTOR([btk._ptr(Dt), btk._ptr(Lt), btk._ptr(chol)],
@@ -273,15 +305,12 @@ def kernel_phase(dev):
               f"max_abs_err={ax:.3e} rel={rel:.3e}")
         check(f_rel <= TOL_REL, f"bt_factor B={B} rel err {f_rel}")
         check(rel <= TOL_REL, f"bt_msolve B={B} R={R} rel err {rel}")
-        rt = torch.stack(cols, 0)
-        xo = torch.empty_like(rt)
 
         def msolve():
-            btk.BT_MSOLVE([btk._ptr(chol), btk._ptr(Lt), btk._ptr(rt),
-                           btk._ptr(xo)], [S, B, R, b], dev)
+            btk._launch_msolve(chol, Lt, rargs, xo, S, B, R, b, dev)
 
         f_ms = time_ms(factor, 20)
-        s_ms = time_ms(msolve, 20)
+        s_ms = time_ms(msolve, 50)
         w_ms = time_ms(
             lambda: btk.block_tridiag_multirhs_entries(Df, Lf, cols, b), 10)
         pf_ms = time_ms(lambda: btk._factor_plain(D, L), 3, warmup=1)
@@ -297,18 +326,22 @@ def kernel_phase(dev):
         fb, fby = bound("bt_factor", S, b, B)
         sb, sby = bound("bt_msolve", S, b, B, R)
         print(f"[kernels] multi-RHS B={B} R={R}: bt_factor {f_ms:.4f} ms "
-              f"(plain {pf_ms:.4f}, torch.linalg.cholesky {lf_ms:.4f}, bound "
-              f"{fb:.4f} {fby}); bt_msolve {s_ms:.4f} ms (plain {ps_ms:.4f}, "
-              f"torch.cholesky_solve {ls_ms:.4f}, bound {sb:.4f} {sby}); "
-              f"wrapper {w_ms:.4f} ms")
+              f"({f_ms / fb:.1f}x bound; plain {pf_ms:.4f}, "
+              f"torch.linalg.cholesky {lf_ms:.4f}, bound {fb:.4f} {fby}); "
+              f"bt_msolve {s_ms:.4f} ms ({s_ms / sb:.1f}x bound; plain "
+              f"{ps_ms:.4f}, torch.cholesky_solve {ls_ms:.4f}, bound "
+              f"{sb:.4f} {sby}, shared memory "
+              f"{btk.msolve_smem_bytes(S, R, b)} B a block); "
+              f"wrapper (factor + msolve) {w_ms:.4f} ms")
         if (B, R) == (B_NN, N):
             rec["bt_factor"] = dict(max_abs_err=f_ax, ms=f_ms, plain_ms=pf_ms,
                                     bound_ms=fb, bound_by=fby,
-                                    library_ms=lf_ms, shape=[B, S, b])
+                                    library_ms=lf_ms, x_bound=f_ms / fb,
+                                    shape=[B, S, b])
             rec["bt_msolve"] = dict(max_abs_err=ax, ms=s_ms, plain_ms=ps_ms,
                                     bound_ms=sb, bound_by=sby,
                                     library_ms=ls_ms, wrapper_ms=w_ms,
-                                    shape=[B, S, b, R])
+                                    x_bound=s_ms / sb, shape=[B, S, b, R])
     return rec
 
 
@@ -798,6 +831,12 @@ def main(argv=None):
     for _, report in builds:
         for line in report.splitlines():
             print(f"[build] {line.strip()}")
+        for name, info in ptxas_summary(report).items():
+            m = re.search(r"(bt_solve_kernel|bt_factor_kernel|bt_msolve_kernel"
+                          r"|substep_kernel)ILi(\d+)E", name)
+            if m:
+                print(f"[ptxas] {m.group(1)}<{m.group(2)}>: "
+                      + json.dumps(info))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

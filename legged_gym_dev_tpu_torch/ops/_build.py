@@ -95,8 +95,11 @@ class Kernel:
             fn.restype = ctypes.c_int
             self._fn = fn
         stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
+        if device.index is None or device.index == torch.cuda.current_device():
             err = self._fn(*ptrs, *ints, stream)
+        else:
+            with torch.cuda.device(device):
+                err = self._fn(*ptrs, *ints, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{err}")

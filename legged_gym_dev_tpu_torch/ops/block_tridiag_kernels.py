@@ -17,21 +17,34 @@ Wrappers keep the JAX package's public layouts:
   sides; factor once (kernel ``bt_factor``), then substitute R columns
   (kernel ``bt_msolve``).
 
+An entry is a float32 tensor broadcastable to its (B, T) shape (an
+expanded view is read in place, stride 0), or the float ``0.0``, the
+solver's structural zero. The kernels read ``bt_solve``'s entries and
+``bt_msolve``'s right-hand-side columns in place, through a table of
+(pointer, batch stride, stage stride) that goes to the kernel by value in
+its launch parameters (a null pointer reads as 0). Only the lower triangle
+of D is read, so an entry shared between D[i][j] and D[j][i] is read once.
+
 On CUDA tensors a wrapper launches its kernel (``csrc/block_tridiag.cu``,
 built at first use) or raises; on CPU tensors, and only there, it runs the
 plain PyTorch version beside it. Each kernel counts its launches.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 
 SUPPORTED_B = (3, 4, 5, 6, 7, 8)   # block sizes the CUDA source instantiates
+MAX_B = 8                          # kMaxB of the CUDA source
+MAX_ENTRIES = 36 + 64 + 8          # kMaxEntries: bt_solve's table at b = 8
+_F32 = torch.float32
 
 
 SOURCE = "block_tridiag.cu"
-BT_SOLVE = _build.Kernel(SOURCE, "bt_solve", n_ptr=5, n_int=3)
+BT_SOLVE = _build.Kernel(SOURCE, "bt_solve", n_ptr=1, n_int=3)
 BT_FACTOR = _build.Kernel(SOURCE, "bt_factor", n_ptr=3, n_int=3)
 BT_MSOLVE = _build.Kernel(SOURCE, "bt_msolve", n_ptr=4, n_int=4)
 KERNELS = {"bt_solve": BT_SOLVE, "bt_factor": BT_FACTOR,
@@ -115,15 +128,49 @@ def _substitute_plain(chol, L, rhs):
     return torch.stack(x, dim=1)
 
 
-def _blocks(E):
-    """b x b nested list of (B, T) -> (B, T, b, b)."""
-    return torch.stack([torch.stack(row, dim=-1) for row in E], dim=-2)
+def _is_zero(e) -> bool:
+    """The solver's structural zero (a Python 0.0 in an entry list)."""
+    return not isinstance(e, torch.Tensor) and e == 0.0
+
+
+def _dense(e, shape, like):
+    """Entry e as a tensor of ``shape`` (a view where it can be)."""
+    if _is_zero(e):
+        return like.new_zeros(()).expand(shape)
+    if not isinstance(e, torch.Tensor):
+        raise TypeError(f"an entry is a tensor or 0.0, not {e!r}")
+    return e.expand(shape)
+
+
+def _blocks(E, shape, like):
+    """b x b nested list of entries -> (*shape, b, b)."""
+    return torch.stack([torch.stack([_dense(e, shape, like) for e in row],
+                                    dim=-1) for row in E], dim=-2)
+
+
+def _full_lower(D_full, b):
+    """D_full with its upper triangle taken from the lower one (the only
+    triangle the kernels read)."""
+    return [[D_full[max(i, j)][min(i, j)] for j in range(b)]
+            for i in range(b)]
+
+
+def _like(entries):
+    """The first tensor of an entry list (fixes device, B and T)."""
+    for e in entries:
+        if isinstance(e, torch.Tensor):
+            return e
+    raise ValueError("an entry list of structural zeros only")
 
 
 def block_tridiag_solve_entries_plain(D_full, L_full, rhs, b: int):
-    x = _substitute_plain(_factor_plain(_blocks(D_full), _blocks(L_full)),
-                          _blocks(L_full),
-                          torch.stack(rhs, dim=-1)[..., None])
+    like = _like(rhs)
+    B, S = like.shape
+    x = _substitute_plain(
+        _factor_plain(_blocks(_full_lower(D_full, b), (B, S), like),
+                      _blocks(L_full, (B, S - 1), like)),
+        _blocks(L_full, (B, S - 1), like),
+        torch.stack([_dense(r, (B, S), like) for r in rhs], dim=-1)[..., None])
     return list(x[..., 0].unbind(-1))
 
 
@@ -132,10 +179,117 @@ def block_tridiag_solve_plain(D, L, rhs):
 
 
 def block_tridiag_multirhs_entries_plain(D_full, L_full, rhs_cols, b: int):
-    Lb = _blocks(L_full)
-    x = _substitute_plain(_factor_plain(_blocks(D_full), Lb), Lb,
-                          torch.stack(rhs_cols, dim=2))
+    like = _like(rhs_cols)
+    B, S, R = like.shape
+    Lb = _blocks(L_full, (B, S - 1), like)
+    x = _substitute_plain(
+        _factor_plain(_blocks(_full_lower(D_full, b), (B, S), like), Lb), Lb,
+        torch.stack([_dense(r, (B, S, R), like) for r in rhs_cols], dim=2))
     return list(x.unbind(2))
+
+
+# ---------------------------------------------------------------------------
+# entry tables
+# ---------------------------------------------------------------------------
+
+class SolveArgs(ctypes.Structure):
+    """``BtSolveArgs`` of csrc/block_tridiag.cu: bt_solve's entry table
+    (D's lower triangle, L row-major, rhs) and the output view."""
+    _fields_ = [("ptr", ctypes.c_void_p * MAX_ENTRIES),
+                ("sb", ctypes.c_int64 * MAX_ENTRIES),
+                ("ss", ctypes.c_int64 * MAX_ENTRIES),
+                ("out", ctypes.c_void_p),
+                ("out_se", ctypes.c_int64),
+                ("out_sb", ctypes.c_int64),
+                ("out_ss", ctypes.c_int64)]
+
+
+class RhsArgs(ctypes.Structure):
+    """``BtRhsArgs`` of csrc/block_tridiag.cu: bt_msolve's b right-hand-side
+    columns."""
+    _fields_ = [("ptr", ctypes.c_void_p * MAX_B),
+                ("sb", ctypes.c_int64 * MAX_B),
+                ("ss", ctypes.c_int64 * MAX_B),
+                ("sr", ctypes.c_int64 * MAX_B)]
+
+
+def entry_views(entries, shape, device, out=None):
+    """Appends to ``out`` (pointer, *strides) of each entry broadcast to
+    ``shape``, in elements; all zeros for a structural zero. Raises for
+    anything that is not a float32 tensor on ``device`` broadcastable to
+    ``shape``. (It runs once for every entry of every launch, so it keeps
+    to the fewest tensor queries.)"""
+    out = [] if out is None else out
+    zero = (0,) * (len(shape) + 1)
+    for e in entries:
+        if not isinstance(e, torch.Tensor):
+            if e != 0.0:
+                raise TypeError(f"an entry is a tensor or 0.0, not {e!r}")
+            out.append(zero)
+            continue
+        if e.dtype is not _F32 or e.device != device:
+            raise TypeError(f"expected float32 on {device}, got {e.dtype} "
+                            f"on {e.device}")
+        if e.shape != shape:
+            try:
+                e = e.expand(shape)
+            except RuntimeError as err:
+                raise ValueError(f"entry of shape {tuple(e.shape)} does not "
+                                 f"broadcast to {tuple(shape)}") from err
+        out.append((e.data_ptr(), *e.stride()))
+    return out
+
+
+def solve_entry_table(D_full, L_full, rhs, b: int, B: int, S: int, device):
+    """bt_solve's table from entry lists: (pointer, batch stride, stage
+    stride) for D's lower triangle (lo(i, j) = i (i + 1) / 2 + j), L
+    row-major, then rhs."""
+    full = torch.Size((B, S))
+    out = entry_views([D_full[i][j] for i in range(b) for j in range(i + 1)],
+                      full, device)
+    entry_views([e for row in L_full[:b] for e in row[:b]],
+                torch.Size((B, S - 1)), device, out)
+    return entry_views(rhs[:b], full, device, out)
+
+
+def _array_entries(A, pairs):
+    """Table rows of a (B, T, b, b) or (B, T, b) tensor's (i, j) or (i,)
+    entries: each is a strided view at an offset."""
+    p, st = A.data_ptr(), A.stride()
+    return [(p + 4 * sum(i * s for i, s in zip(ij, st[2:])), st[0], st[1])
+            for ij in pairs]
+
+
+def _solve_args(table, out: torch.Tensor, out_strides) -> SolveArgs:
+    args = SolveArgs()
+    n = len(table)
+    args.ptr[:n], args.sb[:n], args.ss[:n] = zip(*table)
+    args.out = out.data_ptr()
+    args.out_se, args.out_sb, args.out_ss = out_strides
+    return args
+
+
+def _smem_bytes(symbol: str, *ints) -> int:
+    fn = getattr(_build.load(SOURCE), symbol)
+    fn.argtypes = [ctypes.c_int] * len(ints)
+    fn.restype = ctypes.c_int
+    return fn(*ints)
+
+
+def solve_smem_bytes(S: int, b: int) -> int:
+    """Shared memory of one bt_solve block at these shapes, in bytes (-1
+    if one scenario's rows do not fit on the current card)."""
+    return _smem_bytes("bt_solve_smem", S, b)
+
+
+def msolve_smem_bytes(S: int, R: int, b: int) -> int:
+    """Shared memory of one bt_msolve block at these shapes, in bytes."""
+    return _smem_bytes("bt_msolve_smem", S, R, b)
+
+
+def _launch_solve(args: SolveArgs, S: int, B: int, b: int, device):
+    """bt_solve on a prepared table; the output view is in ``args``."""
+    BT_SOLVE([ctypes.addressof(args)], [S, B, b], device)
 
 
 # ---------------------------------------------------------------------------
@@ -163,11 +317,11 @@ def _check(x: torch.Tensor, shape, device):
                          f"{tuple(x.shape)}")
 
 
-def _stage_major(entries, B, T, device):
-    """List of (B, T) entries -> contiguous (T, len, B)."""
-    for e in entries:
-        _check(e, (B, T), device)
-    return torch.stack([e.t() for e in entries], dim=1)
+def _stage_major(entries, B, T, like):
+    """Entries broadcastable to (B, T) -> contiguous (T, len, B), zeros
+    where an entry is a structural zero (bt_factor's input)."""
+    return torch.stack([_dense(e, (B, T), like).t()
+                        for e in entries], dim=1)
 
 
 def _lower(D_full, b):
@@ -182,32 +336,32 @@ def _ptr(t: torch.Tensor):
     return t.data_ptr() or None
 
 
-def _launch_solve(Dt, Lt, rt, S, B, b):
-    """bt_solve on stage-major tensors: Dt (S, NL, B), Lt (S-1, b*b, B),
-    rt (S, b, B) -> x (S, b, B)."""
-    x = torch.empty_like(rt)
-    chol = torch.empty((S, b * (b + 1) // 2, B), dtype=torch.float32,
-                       device=rt.device)
-    BT_SOLVE([_ptr(Dt), _ptr(Lt), _ptr(rt), _ptr(x), _ptr(chol)],
-             [S, B, b], rt.device)
-    return x
+def prepare_solve_entries(D_full, L_full, rhs, b: int):
+    """bt_solve's launch arguments and output for the entry form: the
+    table and x (b, B, S), which unbinds into the b (B, S) outputs."""
+    like = _like(rhs)
+    B, S = like.shape
+    table = solve_entry_table(D_full, L_full, rhs, b, B, S, like.device)
+    x = torch.empty((b, B, S), dtype=torch.float32, device=like.device)
+    return _solve_args(table, x, (B * S, S, 1)), x
 
 
 def block_tridiag_solve_entries(D_full, L_full, rhs, b: int):
     """Batched solve from entry form (the staged solver's layout).
 
-    D_full: b x b nested list of (B, S) (full symmetric blocks; the kernel
-    reads the lower triangle); L_full: b x b nested list of (B, S-1);
-    rhs: list b of (B, S). Returns list b of (B, S).
+    D_full: b x b nested list of entries broadcastable to (B, S) (the
+    kernel reads the lower triangle); L_full: b x b nested list of entries
+    broadcastable to (B, S-1); rhs: list b of entries broadcastable to
+    (B, S), the first tensor among them of shape (B, S). Returns list b of
+    (B, S).
     """
-    if not _on_cuda(rhs[0], b):
+    like = _like(rhs)
+    if not _on_cuda(like, b):
         return block_tridiag_solve_entries_plain(D_full, L_full, rhs, b)
-    B, S = rhs[0].shape
-    dev = rhs[0].device
-    x = _launch_solve(_stage_major(_lower(D_full, b), B, S, dev),
-                      _stage_major(_flat(L_full, b), B, S - 1, dev),
-                      _stage_major(list(rhs), B, S, dev), S, B, b)
-    return list(x.permute(1, 2, 0).contiguous().unbind(0))
+    B, S = like.shape
+    args, x = prepare_solve_entries(D_full, L_full, rhs, b)
+    _launch_solve(args, S, B, b, like.device)
+    return list(x.unbind(0))
 
 
 def block_tridiag_solve(D, L, rhs):
@@ -219,11 +373,43 @@ def block_tridiag_solve(D, L, rhs):
     _check(D, (B, S, b, b), rhs.device)
     _check(L, (B, S - 1, b, b), rhs.device)
     _check(rhs, (B, S, b), rhs.device)
-    il, jl = torch.tril_indices(b, b, device=D.device)
-    Dt = D[:, :, il, jl].permute(1, 2, 0).contiguous()
-    Lt = L.reshape(B, S - 1, b * b).permute(1, 2, 0).contiguous()
-    rt = rhs.permute(1, 2, 0).contiguous()
-    return _launch_solve(Dt, Lt, rt, S, B, b).permute(2, 0, 1)
+    table = (_array_entries(D, [(i, j) for i in range(b)
+                                for j in range(i + 1)])
+             + _array_entries(L, [(i, j) for i in range(b)
+                                  for j in range(b)])
+             + _array_entries(rhs, [(i,) for i in range(b)]))
+    x = torch.empty((B, S, b), dtype=torch.float32, device=rhs.device)
+    _launch_solve(_solve_args(table, x, (1, S * b, b)), S, B, b, rhs.device)
+    return x
+
+
+def rhs_table(rhs_cols, b: int, B: int, S: int, R: int, device) -> RhsArgs:
+    """bt_msolve's right-hand-side columns, read in place."""
+    args = RhsArgs()
+    rows = entry_views(rhs_cols[:b], torch.Size((B, S, R)), device)
+    args.ptr[:b], args.sb[:b], args.ss[:b], args.sr[:b] = zip(*rows)
+    return args
+
+
+def prepare_multirhs_entries(D_full, L_full, rhs_cols, b: int):
+    """bt_factor's stage-major inputs, its factor output, bt_msolve's
+    right-hand-side table and x (b, B, S, R)."""
+    like = _like(rhs_cols)
+    B, S, R = like.shape
+    dev = like.device
+    Dt = _stage_major(_lower(D_full, b), B, S, like)
+    Lt = _stage_major(_flat(L_full, b), B, S - 1, like)
+    _check(Dt, (S, b * (b + 1) // 2, B), dev)    # float32 entries only
+    _check(Lt, (S - 1, b * b, B), dev)
+    chol = torch.empty((S, b * (b + 1) // 2, B), dtype=torch.float32,
+                       device=dev)
+    x = torch.empty((b, B, S, R), dtype=torch.float32, device=dev)
+    return Dt, Lt, chol, rhs_table(rhs_cols, b, B, S, R, dev), x
+
+
+def _launch_msolve(chol, Lt, rargs: RhsArgs, x, S, B, R, b, device):
+    BT_MSOLVE([_ptr(chol), _ptr(Lt), ctypes.addressof(rargs), _ptr(x)],
+              [S, B, R, b], device)
 
 
 def block_tridiag_multirhs_entries(D_full, L_full, rhs_cols, b: int):
@@ -231,21 +417,17 @@ def block_tridiag_multirhs_entries(D_full, L_full, rhs_cols, b: int):
     substitute every column.
 
     D_full/L_full as in ``block_tridiag_solve_entries``; rhs_cols: list b
-    of (B, S, R). Returns list b of (B, S, R).
+    of entries broadcastable to (B, S, R), the first tensor among them of
+    shape (B, S, R). Returns list b of (B, S, R).
     """
-    if not _on_cuda(rhs_cols[0], b):
+    like = _like(rhs_cols)
+    if not _on_cuda(like, b):
         return block_tridiag_multirhs_entries_plain(D_full, L_full,
                                                     rhs_cols, b)
-    B, S, R = rhs_cols[0].shape
-    dev = rhs_cols[0].device
-    Dt = _stage_major(_lower(D_full, b), B, S, dev)
-    Lt = _stage_major(_flat(L_full, b), B, S - 1, dev)
-    for r in rhs_cols:
-        _check(r, (B, S, R), dev)
-    rt = torch.stack(list(rhs_cols), dim=0)              # (b, B, S, R)
-    chol = torch.empty((S, b * (b + 1) // 2, B), dtype=torch.float32,
-                       device=dev)
+    B, S, R = like.shape
+    dev = like.device
+    Dt, Lt, chol, rargs, x = prepare_multirhs_entries(D_full, L_full,
+                                                      rhs_cols, b)
     BT_FACTOR([_ptr(Dt), _ptr(Lt), _ptr(chol)], [S, B, b], dev)
-    x = torch.empty_like(rt)
-    BT_MSOLVE([_ptr(chol), _ptr(Lt), _ptr(rt), _ptr(x)], [S, B, R, b], dev)
+    _launch_msolve(chol, Lt, rargs, x, S, B, R, b, dev)
     return list(x.unbind(0))

@@ -573,40 +573,10 @@ def factor_solve_entries(D_e, L_e, rhs_e, b):
 #
 # The JAX package reaches its Pallas kernel through a custom_vmap rule that
 # collects the vmapped scenarios into the kernel's lane dimension. Here the
-# entries are batch-major already, so the symbolic zeros of the masked
-# system are materialised and the entry lists go straight to the kernel
-# wrappers (the hand-written CUDA kernels; their plain versions on CPU).
-
-def _dense(x, shape, like):
-    if _is0(x):
-        return torch.zeros(shape, dtype=like.dtype, device=like.device)
-    if isinstance(x, (int, float)):
-        return torch.full(shape, float(x), dtype=like.dtype,
-                          device=like.device)
-    return x.expand(shape)
-
-
-def _dense_system(Dm, Lm, b, B, S, like):
-    D_full = [[_dense(Dm[i][j] if i >= j else Dm[j][i], (B, S), like)
-               for j in range(b)] for i in range(b)]
-    L_full = [[_dense(Lm[i][j], (B, S - 1), like) for j in range(b)]
-              for i in range(b)]
-    return D_full, L_full
-
-
-def _kernel_bt_solve(Dm, Lm, rhs, b, S):
-    B = rhs[0].shape[0]
-    D_full, L_full = _dense_system(Dm, Lm, b, B, S, rhs[0])
-    return block_tridiag_solve_entries(
-        D_full, L_full, [_dense(r, (B, S), rhs[0]) for r in rhs], b)
-
-
-def _kernel_bt_msolve(Dm, Lm, rhs_cols, b, S, R):
-    B = rhs_cols[0].shape[0]
-    D_full, L_full = _dense_system(Dm, Lm, b, B, S, rhs_cols[0])
-    return block_tridiag_multirhs_entries(
-        D_full, L_full, [_dense(r, (B, S, R), rhs_cols[0])
-                         for r in rhs_cols], b)
+# entries are batch-major already, so the entry lists go straight to the
+# kernel wrappers (the hand-written CUDA kernels; their plain versions on
+# CPU), symbolic zeros and all: the kernels read each entry in place and a
+# structural zero as 0, and only the lower triangle of D.
 
 
 # "auto" linsolve switches to cyclic reduction at this stage count.
@@ -745,14 +715,14 @@ def _solve_staged_scalar_impl(sp, p, u0, lb_u, ub_u, cfg, lam0, mu0,
 
     linsolve = _linsolve(cfg, S)
 
-    def msolve(Dm, Lm, rhs_m, R):
+    def msolve(Dm, Lm, rhs_m):
         if linsolve == "pallas":
-            return _kernel_bt_msolve(Dm, Lm, rhs_m, b, S, R)
+            return block_tridiag_multirhs_entries(Dm, Lm, rhs_m, b)
         return factor_solve_entries(Dm, Lm, rhs_m, b)
 
     def solve1(Dm, Lm, rhs):
         if linsolve == "pallas":
-            return _kernel_bt_solve(Dm, Lm, rhs, b, S)
+            return block_tridiag_solve_entries(Dm, Lm, rhs, b)
         return factor_solve_entries(Dm, Lm, rhs, b)
 
     def capacitance(Um, Ru):
@@ -776,7 +746,7 @@ def _solve_staged_scalar_impl(sp, p, u0, lb_u, ub_u, cfg, lam0, mu0,
               for i in range(b)]
         rhs_m = [torch.zeros(B, S, N, dtype=dt, device=dev) if _is0(Um[i])
                  else Um[i] for i in range(b)]
-        Ru = msolve(Dm, Lm, rhs_m, N)
+        Ru = msolve(Dm, Lm, rhs_m)
         return Um, Ru, cap_factor(capacitance(Um, Ru))
 
     alphas = torch.pow(
@@ -812,7 +782,7 @@ def _solve_staged_scalar_impl(sp, p, u0, lb_u, ub_u, cfg, lam0, mu0,
                 [gf[i][:, :, None],
                  torch.zeros(B, S, N, dtype=dt, device=dev) if _is0(Um[i])
                  else Um[i]], dim=2) for i in range(b)]
-            sol_m = msolve(Dm, Lm, rhs_m, N + 1)
+            sol_m = msolve(Dm, Lm, rhs_m)
             Rg = [s[:, :, 0] for s in sol_m]
             Ru = [s[:, :, 1:] for s in sol_m]
             C = capacitance(Um, Ru)

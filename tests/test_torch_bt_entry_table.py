@@ -1,0 +1,181 @@
+"""The entry tables through which the block-tridiagonal kernels read the
+solver's tensors in place (``ops/block_tridiag_kernels.py``), checked on
+the CPU: each table row (pointer, batch stride, stage stride), rebuilt with
+``torch.as_strided`` over the storage it points into (zero where the
+pointer is null), must give exactly the stage-major stack the wrappers
+used to build before the kernels read in place: dense (B, T) entries,
+structural zeros materialised, D's upper triangle mirrored from the lower.
+Cases: structural zeros, a tensor shared between D[1][0] and D[0][1],
+stride-0 entries along the batch and along the stages, the array form
+with non-contiguous strides, and bt_msolve's right-hand-side columns."""
+import pytest
+import torch
+
+from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+from tests.test_torch_kernels_cuda import special_entries
+
+CPU = torch.device("cpu")
+
+
+def rebuild(rows, shape, tensors):
+    """Stage-major (T, len(rows), B) stack of the views the table rows
+    describe; ``tensors`` holds every tensor the pointers may point into."""
+    B, T = shape
+    out = []
+    for p, sb, ss in rows:
+        if p == 0:
+            out.append(torch.zeros(T, B))
+            continue
+        for t in tensors:
+            st = t.untyped_storage()
+            if st.data_ptr() <= p < st.data_ptr() + st.nbytes():
+                base = torch.tensor([], dtype=torch.float32).set_(st)
+                view = torch.as_strided(base, (B, T), (sb, ss),
+                                        (p - st.data_ptr()) // 4)
+                out.append(view.t())
+                break
+        else:
+            raise AssertionError(f"pointer {p:#x} is in no input tensor")
+    return torch.stack(out, dim=1)
+
+
+def dense_entry(e, shape):
+    """What the solver's routing materialised for the kernels before they
+    read entries in place."""
+    if not isinstance(e, torch.Tensor):
+        return torch.zeros(shape)
+    return e.expand(shape)
+
+
+def stage_major_stack(entries, shape):
+    return torch.stack([dense_entry(e, shape).t() for e in entries], dim=1)
+
+
+def tensors_of(*lists):
+    out = []
+    for x in lists:
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (list, tuple)):
+            out += tensors_of(*x)
+    return out
+
+
+@pytest.mark.parametrize("b", [3, 5, 8])
+@pytest.mark.parametrize("B,S", [(6, 7), (3, 1), (5, 51)])
+def test_solve_table_matches_stage_major_stack(b, B, S):
+    """special_entries needs b >= 4; b = 3 takes dense entries."""
+    if b >= 4:
+        Df, Lf, r = special_entries(B, S, b, seed=b)[0]
+    else:
+        Df, Lf, r = _plain_entries(B, S, b)
+    table = btk.solve_entry_table(Df, Lf, r, b, B, S, CPU)
+    nl, bb = b * (b + 1) // 2, b * b
+    assert len(table) == nl + bb + b <= btk.MAX_ENTRIES
+    ts = tensors_of(Df, Lf, r)
+    D_sym = [[Df[i][j] if i >= j else Df[j][i] for j in range(b)]
+             for i in range(b)]
+    lower = [D_sym[i][j] for i in range(b) for j in range(i + 1)]
+    assert torch.equal(rebuild(table[:nl], (B, S), ts),
+                       stage_major_stack(lower, (B, S)))
+    if S > 1:
+        flat = [Lf[i][j] for i in range(b) for j in range(b)]
+        assert torch.equal(rebuild(table[nl:nl + bb], (B, S - 1), ts),
+                           stage_major_stack(flat, (B, S - 1)))
+    assert torch.equal(rebuild(table[nl + bb:], (B, S), ts),
+                       stage_major_stack(r, (B, S)))
+
+
+def _plain_entries(B, S, b):
+    """Dense contiguous entries with one structural zero in L and rhs."""
+    g = torch.Generator().manual_seed(B * 100 + S)
+    Df = [[torch.randn(B, S, generator=g) for _ in range(b)]
+          for _ in range(b)]
+    Lf = [[torch.randn(B, S - 1, generator=g) for _ in range(b)]
+          for _ in range(b)]
+    Lf[0][1] = 0.0
+    r = [torch.randn(B, S, generator=g) for _ in range(b)]
+    r[-1] = 0.0
+    return Df, Lf, r
+
+
+def test_shared_and_expanded_entries_point_into_one_storage():
+    """A tensor shared between D[1][0] and D[0][1] is read once (the lower
+    one); an expanded entry has stride 0 where it was broadcast."""
+    (Df, Lf, r), _ = special_entries(4, 6, 5, seed=1)
+    table = btk.solve_entry_table(Df, Lf, r, 5, 4, 6, CPU)
+    lo = {(i, j): n for n, (i, j) in enumerate(
+        (i, j) for i in range(5) for j in range(i + 1))}
+    assert table[lo[1, 0]][0] == Df[1][0].data_ptr()
+    assert table[lo[2, 0]] == (0, 0, 0)
+    assert table[lo[3, 3]][1] == 0                  # batch stride 0
+    assert table[15 + 5][2] == 0                    # L[1][0]: stage stride 0
+    assert table[15 + 1] == (0, 0, 0)               # L[0][1]: zero
+    assert table[15 + 25 + 1] == (0, 0, 0)          # rhs[1]: zero
+
+
+@pytest.mark.parametrize("b", [3, 5, 8])
+def test_array_table_matches_stage_major_stack(b):
+    """The array form's table over (B, S, b, b) strides, here column-major
+    blocks and a slice of a wider tensor, against the permuted copies the
+    wrapper used to make."""
+    B, S = 4, 9
+    g = torch.Generator().manual_seed(b)
+    D = torch.randn(B, S, b, b, generator=g).transpose(-1, -2)
+    Lw = torch.randn(B, S - 1, b, b + 3, generator=g)
+    L = Lw[..., 1:b + 1]
+    rhs = torch.randn(B, S, 2 * b, generator=g)[..., ::2]
+    il, jl = torch.tril_indices(b, b)
+    rows = btk._array_entries(D, [(i, j) for i in range(b)
+                                  for j in range(i + 1)])
+    assert torch.equal(rebuild(rows, (B, S), [D]),
+                       D[:, :, il, jl].permute(1, 2, 0))
+    rows = btk._array_entries(L, [(i, j) for i in range(b)
+                                  for j in range(b)])
+    assert torch.equal(rebuild(rows, (B, S - 1), [Lw]),
+                       L.reshape(B, S - 1, b * b).permute(1, 2, 0))
+    rows = btk._array_entries(rhs, [(i,) for i in range(b)])
+    assert torch.equal(rebuild(rows, (B, S), [rhs]), rhs.permute(1, 2, 0))
+
+
+def test_rhs_table_matches_stacked_columns():
+    """bt_msolve's right-hand-side table against the stacked (b, B, S, R)
+    copy the wrapper used to make; a structural-zero column reads as zeros."""
+    B, S, R, b = 3, 5, 4, 5
+    (Df, Lf, cols), _ = special_entries(B, S, b, R, seed=4)
+    args = btk.rhs_table(cols, b, B, S, R, CPU)
+    for i, c in enumerate(cols):
+        if not isinstance(c, torch.Tensor):
+            assert args.ptr[i] is None
+            continue
+        st = c.untyped_storage()
+        base = torch.tensor([], dtype=torch.float32).set_(st)
+        view = torch.as_strided(base, (B, S, R),
+                                (args.sb[i], args.ss[i], args.sr[i]),
+                                (args.ptr[i] - st.data_ptr()) // 4)
+        assert torch.equal(view, c)
+
+
+def test_solve_args_pack_the_table_and_output_view():
+    """The ctypes struct the kernel takes by value: pointers (None where
+    null), strides, and the (b, B, S) output view the entry form unbinds."""
+    (Df, Lf, r), _ = special_entries(2, 4, 5, seed=2)
+    args, x = btk.prepare_solve_entries(Df, Lf, r, 5)
+    table = btk.solve_entry_table(Df, Lf, r, 5, 2, 4, CPU)
+    assert x.shape == (5, 2, 4) and x.is_contiguous()
+    for n, (p, sb, ss) in enumerate(table):
+        assert (args.ptr[n] or 0, args.sb[n], args.ss[n]) == (p, sb, ss)
+    assert all(args.ptr[n] is None for n in range(len(table),
+                                                  btk.MAX_ENTRIES))
+    assert (args.out, args.out_se, args.out_sb, args.out_ss) == (
+        x.data_ptr(), 8, 4, 1)
+
+
+def test_entry_views_reject_what_the_kernel_cannot_read():
+    shape = torch.Size((2, 3))
+    with pytest.raises(TypeError):
+        btk.entry_views([1.5], shape, CPU)
+    with pytest.raises(TypeError):
+        btk.entry_views([torch.zeros(2, 3, dtype=torch.float64)], shape, CPU)
+    with pytest.raises(ValueError):
+        btk.entry_views([torch.zeros(3, 3)], shape, CPU)

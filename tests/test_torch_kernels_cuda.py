@@ -2,7 +2,9 @@
 card against their plain PyTorch versions, at small shapes, at the main
 path's shapes and at a batch that is not a multiple of the thread block
 (the ragged edge). Tolerance: max |kernel - plain| / max |plain| <= 1e-4
-(fp32; the two sum in different orders, and nvcc contracts into FMA).
+(fp32; the two sum in different orders, nvcc contracts into FMA, and the
+block-tridiagonal kernels multiply by reciprocal pivots where the plain
+versions divide).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and PyTorch alone (``--noconftest`` skips tests/conftest.py,
@@ -42,6 +44,44 @@ def entry_lists(D, L, conv):
     b = D.shape[-1]
     return ([[conv(D[:, :, i, j]) for j in range(b)] for i in range(b)],
             [[conv(L[:, :, i, j]) for j in range(b)] for i in range(b)])
+
+
+def special_entries(B, S, b, R=1, seed=0, device="cpu"):
+    """Entry lists in the shapes the staged solver hands over, with every
+    case the entry table must read: a structural zero (0.0) in D, L and
+    the right-hand side, one tensor shared between D[1][0] and D[0][1], a
+    D entry expanded along the batch and an L entry expanded along the
+    stages (stride 0). Returns (D_full, L_full, rhs) and the dense numpy
+    system (D, L, rhs) they stand for."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, S, b, b)).astype(np.float32)
+    D = (0.2 * np.einsum("bsij,bskj->bsik", A, A)
+         + (2.0 + b) * np.eye(b, dtype=np.float32)).astype(np.float32)
+    L = (rng.normal(size=(B, S - 1, b, b)) * 0.3).astype(np.float32)
+    rhs = rng.normal(size=(B, S, b, R)).astype(np.float32)
+    D[:, :, 2, 0] = D[:, :, 0, 2] = 0.0          # structural zero
+    D[:, :, 3, 3] = D[:1, :, 3, 3]               # expanded along the batch
+    L[:, :, 0, 1] = 0.0                          # structural zeros
+    L[:, :, 2, 2] = 0.0
+    L[:, :, 1, 0] = L[:, :1, 1, 0]               # expanded along the stages
+    rhs[:, :, 1] = 0.0
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    D_full = [[t(D[:, :, i, j]) for j in range(b)] for i in range(b)]
+    D_full[0][1] = D_full[1][0]
+    D_full[2][0] = D_full[0][2] = 0.0
+    D_full[3][3] = t(D[:1, :, 3, 3]).expand(B, S)
+    L_full = [[t(L[:, :, i, j]) for j in range(b)] for i in range(b)]
+    L_full[0][1] = L_full[2][2] = 0.0
+    L_full[1][0] = t(L[:, :1, 1, 0])             # broadcasts to (B, S-1)
+    if R == 1:
+        r = [t(rhs[:, :, i, 0]) for i in range(b)]
+    else:
+        r = [t(rhs[:, :, i, :]) for i in range(b)]
+    r[1] = 0.0
+    return (D_full, L_full, r), (D, L, rhs)
 
 
 @pytest.fixture
@@ -84,6 +124,65 @@ def test_bt_factor_msolve_match_plain_on_card(card, B, S, b, R):
     x_pl = torch.stack(
         btk.block_tridiag_multirhs_entries_plain(Dt, Lt, cols, b))
     assert rel(x, x_pl) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", btk.SUPPORTED_B)
+@pytest.mark.parametrize("B", [2048, 1000])
+def test_bt_solve_every_block_size_on_card(card, b, B):
+    """bt_solve at S=51 for every instantiated block size, at the l1 batch
+    and a ragged one, through both wrappers."""
+    test_bt_solve_matches_plain_on_card(card, B, 51, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", btk.SUPPORTED_B)
+@pytest.mark.parametrize("B", [1024, 1000])
+def test_bt_msolve_every_block_size_on_card(card, b, B):
+    """bt_factor + bt_msolve at S=51, R=50 for every instantiated block
+    size, at the NN batch and a ragged one."""
+    test_bt_factor_msolve_match_plain_on_card(card, B, 51, b, 50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 50])
+def test_entry_table_cases_on_card(card, R):
+    """Structural zeros (null pointers), a tensor shared between D[1][0]
+    and D[0][1], stride-0 entries, and the array form with non-contiguous
+    strides: the kernels against the plain version of the dense system."""
+    B, S, b = 300, 51, 5
+    (Df, Lf, r), (D, L, rhs) = special_entries(B, S, b, R, seed=R,
+                                               device=card)
+    Dd, Ld, rd = (torch.as_tensor(a, device=card) for a in (D, L, rhs))
+    ref = btk._substitute_plain(btk._factor_plain(Dd, Ld), Ld, rd)
+    if R == 1:
+        x = torch.stack(btk.block_tridiag_solve_entries(Df, Lf, r, b), -1)
+        assert rel(x, ref[..., 0]) <= 1e-4
+        # array form: D with column-major blocks, L a slice of a wider
+        # tensor
+        Dt = Dd.transpose(-1, -2).contiguous().transpose(-1, -2)
+        Lw = torch.zeros(B, S - 1, b, b + 2, device=card)
+        Lw[..., :b] = Ld
+        xb = btk.block_tridiag_solve(Dt, Lw[..., :b], rd[..., 0])
+        assert rel(xb, ref[..., 0]) <= 1e-4
+    else:
+        x = torch.stack(btk.block_tridiag_multirhs_entries(Df, Lf, r, b), 2)
+        assert rel(x, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernels_raise_on_card(card):
+    """No fallback on the card: an unsupported block size, a float64 entry
+    or an entry on another device raises."""
+    D, L, rhs = make_systems(16, 6, 5, seed=2)
+    Dt, Lt = entry_lists(D, L, lambda a: torch.as_tensor(a, device=card))
+    r = [torch.as_tensor(rhs[:, :, i, 0], device=card) for i in range(5)]
+    with pytest.raises(TypeError):
+        btk.block_tridiag_solve_entries(Dt, Lt, r[:4] + [r[4].double()], 5)
+    with pytest.raises(TypeError):
+        btk.block_tridiag_solve_entries(Dt, Lt, r[:4] + [r[4].cpu()], 5)
+    with pytest.raises(ValueError, match="block size"):
+        btk.block_tridiag_solve_entries(Dt, Lt, r, 9)
 
 
 @pytest.mark.cuda
