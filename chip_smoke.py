@@ -45,6 +45,7 @@ debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl).
 """
 import argparse
 import concurrent.futures
+import ctypes
 import json
 import re
 import subprocess
@@ -131,16 +132,20 @@ def _subst_ops(S, b):
 
 
 def work(kernel, S, b, B, R=1):
-    """(bytes, operations) of one call at these shapes, fp32."""
+    """(bytes, operations) of one call at these shapes, fp32: the function's
+    own inputs and outputs. bt_factor reads D's lower triangle and L and
+    writes the packed factor; bt_msolve reads the factor, L and the
+    right-hand sides and writes x. (The stage records that bt_factor writes
+    for bt_msolve also carry a copy of L, the reciprocal pivots and float4
+    padding: the design's choice, not counted.)"""
     nl = b * (b + 1) // 2
     D, L = 4 * B * S * nl, 4 * B * (S - 1) * b * b
     if kernel == "bt_solve":
         return D + L + 2 * 4 * B * S * b, B * (_factor_ops(S, b)
                                                + _subst_ops(S, b))
     if kernel == "bt_factor":
-        return D + L + 4 * B * S * nl, B * _factor_ops(S, b)
-    return (4 * B * S * nl + L + 2 * 4 * B * S * b * R,
-            B * R * _subst_ops(S, b))
+        return 2 * D + L, B * _factor_ops(S, b)
+    return D + L + 2 * 4 * B * S * b * R, B * R * _subst_ops(S, b)
 
 
 def bound(kernel, S, b, B, R=1):
@@ -167,6 +172,44 @@ def time_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(call, reps=20, sleep_cycles=20_000_000):
+    """Device time a launch: CUDA events around ``reps`` launches that the
+    host queues behind a sleep kernel (``torch.cuda._sleep``, about 10 ms),
+    so they run back to back on the device whatever the host's launch
+    rate. Returns (ms, host ms to queue them, sleep ms); ms is None when
+    the host took more than 80% of the sleep to queue them, and then only
+    the plain CUDA-events time stands. (No torch.profiler here: after a
+    profiler session every launch costs the host more, which would tax the
+    main path that runs after this phase; see
+    scripts/torch_profiler_overhead.py.)"""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(sleep_cycles)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    ev[2].record()
+    torch.cuda.synchronize()
+    sleep_ms = ev[0].elapsed_time(ev[1])
+    ms = ev[1].elapsed_time(ev[2]) / reps
+    return (ms if host_ms < 0.8 * sleep_ms else None), host_ms, sleep_ms
+
+
+def fmt_ms(ms, host_ms=None, sleep_ms=None):
+    """A device time for the log: 'not measured' where the host could not
+    queue the launches ahead of the device."""
+    if ms is not None:
+        return f"{ms:.4f}"
+    return (f"not measured (queueing took {host_ms:.2f} ms of a "
+            f"{sleep_ms:.2f} ms sleep)")
 
 
 def spd_systems(B, S, b, R, seed, dev):
@@ -238,6 +281,8 @@ def kernel_phase(dev):
                      20)
         args, _ = btk.prepare_solve_entries(Df, Lf, r, b)
         k_ms = time_ms(lambda: btk._launch_solve(args, S, B, b, dev), 50)
+        k_dev, *k_q = device_ms(
+            lambda: btk._launch_solve(args, S, B, b, dev))
         p_ms = time_ms(
             lambda: btk.block_tridiag_solve_entries_plain(Df, Lf, r, b), 3,
             warmup=1)
@@ -249,11 +294,14 @@ def kernel_phase(dev):
         bms, by = bound("bt_solve", S, b, B)
         print(f"[kernels] bt_solve B={B}: wrapper {ms:.4f} ms "
               f"({ms / bms:.1f}x bound), kernel alone {k_ms:.4f} ms "
-              f"({k_ms / bms:.1f}x bound), plain {p_ms:.4f} ms, "
+              f"({k_ms / bms:.1f}x bound; device {fmt_ms(k_dev, *k_q)}), "
+              f"plain "
+              f"{p_ms:.4f} ms, "
               f"torch.linalg.solve {lib_ms:.4f} ms "
               f"(|kernel-library|={lib_ax:.2e}), bound {bms:.4f} ms ({by}), "
               f"shared memory {btk.solve_smem_bytes(S, b)} B a block")
         rec["bt_solve"] = dict(max_abs_err=ax, ms=ms, kernel_only_ms=k_ms,
+                               kernel_device_ms=k_dev,
                                plain_ms=p_ms, bound_ms=bms, bound_by=by,
                                library_ms=lib_ms, x_bound=ms / bms,
                                kernel_only_x_bound=k_ms / bms,
@@ -287,18 +335,16 @@ def kernel_phase(dev):
                         2)
         x_pl = torch.stack(
             btk.block_tridiag_multirhs_entries_plain(Df, Lf, cols, b), 2)
-        Dt, Lt, chol, rargs, xo = btk.prepare_multirhs_entries(Df, Lf, cols,
-                                                               b)
+        fargs, frec, rargs, xo = btk.prepare_multirhs_entries(Df, Lf, cols,
+                                                              b)
 
         def factor():
-            btk.BT_FACTOR([btk._ptr(Dt), btk._ptr(Lt), btk._ptr(chol)],
-                          [S, B, b], dev)
+            btk._launch_factor(fargs, S, B, b, dev)
 
         factor()
-        il, jl = torch.tril_indices(b, b, device=dev)
-        chol_pl = torch.stack(btk._factor_plain(D, L), 1)[:, :, il, jl]
+        rec_pl = btk.factor_records_plain(Df, Lf, b, B, S)
         torch.cuda.synchronize()
-        f_ax, f_rel = errs(chol.permute(2, 0, 1), chol_pl)
+        f_ax, f_rel = errs(frec, rec_pl)
         ax, rel = errs(x, x_pl)
         print(f"[kernels] bt_factor B={B}: max_abs_err={f_ax:.3e} "
               f"rel={f_rel:.3e}; bt_msolve B={B} R={R}: "
@@ -307,9 +353,18 @@ def kernel_phase(dev):
         check(rel <= TOL_REL, f"bt_msolve B={B} R={R} rel err {rel}")
 
         def msolve():
-            btk._launch_msolve(chol, Lt, rargs, xo, S, B, R, b, dev)
+            btk._launch_msolve(frec, rargs, xo, S, B, R, b, dev)
 
         f_ms = time_ms(factor, 20)
+        f_dev, *f_q = device_ms(factor)
+        s_dev, *s_q = device_ms(msolve)
+
+        def factor_with_table():
+            fa, out, _, _ = btk.prepare_multirhs_entries(Df, Lf, cols, b)
+            btk._launch_factor(fa, S, B, b, dev)
+            return out
+
+        ft_ms = time_ms(factor_with_table, 20)
         s_ms = time_ms(msolve, 50)
         w_ms = time_ms(
             lambda: btk.block_tridiag_multirhs_entries(Df, Lf, cols, b), 10)
@@ -326,9 +381,14 @@ def kernel_phase(dev):
         fb, fby = bound("bt_factor", S, b, B)
         sb, sby = bound("bt_msolve", S, b, B, R)
         print(f"[kernels] multi-RHS B={B} R={R}: bt_factor {f_ms:.4f} ms "
-              f"({f_ms / fb:.1f}x bound; plain {pf_ms:.4f}, "
-              f"torch.linalg.cholesky {lf_ms:.4f}, bound {fb:.4f} {fby}); "
-              f"bt_msolve {s_ms:.4f} ms ({s_ms / sb:.1f}x bound; plain "
+              f"({f_ms / fb:.1f}x bound; device {fmt_ms(f_dev, *f_q)}; "
+              f"with its "
+              f"table and output "
+              f"{ft_ms:.4f}; plain {pf_ms:.4f}, "
+              f"torch.linalg.cholesky {lf_ms:.4f}, bound {fb:.4f} {fby}, "
+              f"shared memory {btk.factor_smem_bytes(S, b)} B a block); "
+              f"bt_msolve {s_ms:.4f} ms ({s_ms / sb:.1f}x bound; device "
+              f"{fmt_ms(s_dev, *s_q)}; plain "
               f"{ps_ms:.4f}, torch.cholesky_solve {ls_ms:.4f}, bound "
               f"{sb:.4f} {sby}, shared memory "
               f"{btk.msolve_smem_bytes(S, R, b)} B a block); "
@@ -337,8 +397,12 @@ def kernel_phase(dev):
             rec["bt_factor"] = dict(max_abs_err=f_ax, ms=f_ms, plain_ms=pf_ms,
                                     bound_ms=fb, bound_by=fby,
                                     library_ms=lf_ms, x_bound=f_ms / fb,
+                                    kernel_device_ms=f_dev,
+                                    with_table_ms=ft_ms,
+                                    multirhs_wrapper_ms=w_ms,
                                     shape=[B, S, b])
             rec["bt_msolve"] = dict(max_abs_err=ax, ms=s_ms, plain_ms=ps_ms,
+                                    kernel_device_ms=s_dev,
                                     bound_ms=sb, bound_by=sby,
                                     library_ms=ls_ms, wrapper_ms=w_ms,
                                     x_bound=s_ms / sb, shape=[B, S, b, R])
@@ -483,12 +547,22 @@ def closed_loop(dev, B=B_NN, H=3):
     return rec
 
 
-def profile_window(dev):
+def sm_clock():
+    """The card's SM clock now, and its maximum, as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+
+
+def profile_window(dev, krec):
     """Where a solve's time goes: one short window (2x10 schedule) of each
     mode under ``torch.profiler``, at bench width. Prints the host wall
     time, the device time summed over the kernels it ran (one stream, so
-    they do not overlap), the device's busy share of the wall and the
-    kernels with the most device time."""
+    they do not overlap), the device's busy share of the wall, the kernels
+    with the most device time, and the port's kernels' device time a
+    launch beside their time alone from the kernel phase (CUDA events over
+    launches back to back, and over launches queued behind a sleep)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -525,11 +599,25 @@ def profile_window(dev):
         busy_ms = 1e-3 * sum(v[1] for v in by_name.values())
         check(launches > 0, f"profile {tube}: the trace holds no device op")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        clock = sm_clock()
+        per_launch = {}
+        for kernel in ("bt_solve", "bt_factor", "bt_msolve"):
+            hits = [(n, us) for name, (n, us) in by_name.items()
+                    if f"{kernel}_kernel" in name]
+            if hits:
+                n = sum(h[0] for h in hits)
+                alone = krec.get(kernel, {})
+                per_launch[kernel] = dict(
+                    launches=n, profiled_ms=1e-3 * sum(h[1] for h in hits) / n,
+                    alone_events_ms=alone.get("kernel_only_ms",
+                                              alone.get("ms")),
+                    alone_device_ms=alone.get("kernel_device_ms"))
         rec = dict(batch=B, schedule="2x10", wall_ms=1e3 * wall,
                    device_busy_ms=busy_ms,
                    busy_share=busy_ms / (1e3 * wall),
                    device_ops=launches,
                    us_per_device_op=1e3 * busy_ms / launches,
+                   sm_clock_after=clock, per_launch=per_launch,
                    top=[[name[:60], n, 1e-3 * us] for name, (n, us) in top])
         print(f"[profile {tube}] " + json.dumps(rec))
 
@@ -617,6 +705,13 @@ def substep_ops_per_env(robot):
     return Count.n
 
 
+def distinct(t):
+    """Elements a tensor view holds (those along stride-0 dimensions
+    once)."""
+    return int(np.prod([n for n, st in zip(t.shape, t.stride()) if st != 0],
+                       dtype=np.int64))
+
+
 def substep_phase(dev):
     """K3 against its plain version at B=4096 on both test robots; times
     and the bound. Returns the quadruped's record (the main path's)."""
@@ -646,36 +741,46 @@ def substep_phase(dev):
             check(r <= TOL_REL, f"substep {robot} {name} rel err {r}")
         nj, nv = sim.model.nj, sim.model.nv
         nc = len(sim.model.contact_body)
-        xs = torch.cat([st.base_pos, st.base_quat, st.q, st.v, tau],
-                       1).t().contiguous()
-        dr = sk.dr_rows(sim, B_RL, dev)
-        params = sk._model_tensor(sim, dev)
-        o = torch.empty((7 + nj + nv, B_RL), device=dev)
+        outs = [torch.empty((B_RL, n), device=dev) for n in (3, 4, nj, nv)]
+        args, views = sk.substep_args(sim, st, tau, outs)
+        params, topo = sk._model_tensors(sim, dev)
+
+        sk.launch(sim, args, B_RL, dev)        # builds and binds
+        fn = sk.SUBSTEP.function()
+        raw = (params.data_ptr(), topo.data_ptr(), ctypes.addressof(args), nj,
+               nc, B_RL, torch.cuda.current_stream(dev).cuda_stream)
 
         def launch():
-            sk.SUBSTEP([sk._ptr(params), sk._ptr(xs), sk._ptr(dr),
-                        sk._ptr(o)], [nj, nc, B_RL, 1], dev)
+            fn(*raw)
 
         ms = time_ms(lambda: sk.substep(sim, st, tau), 20)
         k_ms = time_ms(launch, 50)
+        k_dev, *k_q = device_ms(launch)
         p_ms = time_ms(lambda: sk.substep_plain(sim, st, tau), 3, warmup=1)
         ops = substep_ops_per_env(robot) * B_RL
-        nbytes = 4 * (xs.numel() + dr.numel() + o.numel() + params.numel())
+        # each input read once: the state, the DR values as stored (not as
+        # broadcast), the model and schedules; each output written once
+        inputs = [st.base_pos, st.base_quat, st.q, st.v, tau, params, topo]
+        nbytes = 4 * (sum(distinct(t) for t in inputs + views
+                          if t is not None) + sum(o.numel() for o in outs))
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
         bms, by = 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o
                                         else "operations")
         print(f"[substep] {robot} B={B_RL} nj={nj} nc={nc}: wrapper "
-              f"{ms:.4f} ms, kernel alone {k_ms:.4f} ms, plain {p_ms:.4f} "
+              f"{ms:.4f} ms, kernel alone {k_ms:.4f} ms (device "
+              f"{fmt_ms(k_dev, *k_q)}), plain {p_ms:.4f} "
               f"ms, bound {bms:.6f} ms ({by}: {nbytes / 1e6:.3f} MB, "
               f"{ops / 1e6:.2f} Mop)")
         rec[robot] = dict(max_abs_err=ax, ms=ms, kernel_only_ms=k_ms,
+                          kernel_device_ms=k_dev,
                           plain_ms=p_ms, bound_ms=bms, bound_by=by,
                           library_ms=None, shape=[B_RL, nj, nc],
                           ops_per_env=ops // B_RL, bytes=nbytes)
     out = dict(rec["quadruped"])
     out["hopper4"] = {k: rec["hopper4"][k] for k in
-                      ("max_abs_err", "ms", "kernel_only_ms", "plain_ms",
-                       "bound_ms", "bound_by")}
+                      ("max_abs_err", "ms", "kernel_only_ms",
+                       "kernel_device_ms", "plain_ms", "bound_ms",
+                       "bound_by")}
     return out
 
 
@@ -870,7 +975,7 @@ def main(argv=None):
     if "ref" in phases:
         reference_check(dev)
     if "profile" in phases:
-        profile_window(dev)
+        profile_window(dev, krec)
     if "rl" in phases:
         rl_profile(*rl_state[:4])
 

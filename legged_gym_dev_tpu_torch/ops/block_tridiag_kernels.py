@@ -14,16 +14,18 @@ Wrappers keep the JAX package's public layouts:
 - ``block_tridiag_solve``: array form (B, S, b, b); a second wrapper over
   the same ``bt_solve`` kernel.
 - ``block_tridiag_multirhs_entries``: entry lists with (B, S, R) right-hand
-  sides; factor once (kernel ``bt_factor``), then substitute R columns
-  (kernel ``bt_msolve``).
+  sides; factor once (kernel ``bt_factor``, which writes one record per
+  stage: packed factor, L_k, 1 / c_jj), then substitute R columns against
+  the records (kernel ``bt_msolve``).
 
 An entry is a float32 tensor broadcastable to its (B, T) shape (an
 expanded view is read in place, stride 0), or the float ``0.0``, the
-solver's structural zero. The kernels read ``bt_solve``'s entries and
-``bt_msolve``'s right-hand-side columns in place, through a table of
-(pointer, batch stride, stage stride) that goes to the kernel by value in
-its launch parameters (a null pointer reads as 0). Only the lower triangle
-of D is read, so an entry shared between D[i][j] and D[j][i] is read once.
+solver's structural zero. The kernels read ``bt_solve``'s and
+``bt_factor``'s entries and ``bt_msolve``'s right-hand-side columns in
+place, through a table of (pointer, batch stride, stage stride) that goes
+to the kernel by value in its launch parameters (a null pointer reads as
+0). Only the lower triangle of D is read, so an entry shared between
+D[i][j] and D[j][i] is read once.
 
 On CUDA tensors a wrapper launches its kernel (``csrc/block_tridiag.cu``,
 built at first use) or raises; on CPU tensors, and only there, it runs the
@@ -39,14 +41,15 @@ from . import _build
 
 SUPPORTED_B = (3, 4, 5, 6, 7, 8)   # block sizes the CUDA source instantiates
 MAX_B = 8                          # kMaxB of the CUDA source
-MAX_ENTRIES = 36 + 64 + 8          # kMaxEntries: bt_solve's table at b = 8
+MAX_FACTOR_ENTRIES = 36 + 64      # kMaxFactorEntries: bt_factor's table
+MAX_ENTRIES = MAX_FACTOR_ENTRIES + 8   # kMaxEntries: bt_solve's table
 _F32 = torch.float32
 
 
 SOURCE = "block_tridiag.cu"
 BT_SOLVE = _build.Kernel(SOURCE, "bt_solve", n_ptr=1, n_int=3)
-BT_FACTOR = _build.Kernel(SOURCE, "bt_factor", n_ptr=3, n_int=3)
-BT_MSOLVE = _build.Kernel(SOURCE, "bt_msolve", n_ptr=4, n_int=4)
+BT_FACTOR = _build.Kernel(SOURCE, "bt_factor", n_ptr=1, n_int=3)
+BT_MSOLVE = _build.Kernel(SOURCE, "bt_msolve", n_ptr=3, n_int=4)
 KERNELS = {"bt_solve": BT_SOLVE, "bt_factor": BT_FACTOR,
            "bt_msolve": BT_MSOLVE}
 
@@ -188,6 +191,34 @@ def block_tridiag_multirhs_entries_plain(D_full, L_full, rhs_cols, b: int):
     return list(x.unbind(2))
 
 
+def record_layout(b: int):
+    """(NLp, BBp, Bp, REC) of ``Dim<b>`` in csrc/block_tridiag.cu: a stage
+    record is the packed lower factor (NL floats, padded to NLp), then L_k
+    row-major (b*b, padded to BBp), then 1 / c_jj (b, padded to Bp)."""
+    def pad(n):
+        return (n + 3) & ~3
+    nlp, bbp, bp = pad(b * (b + 1) // 2), pad(b * b), pad(b)
+    return nlp, bbp, bp, nlp + bbp + bp
+
+
+def factor_records_plain(D_full, L_full, b: int, B: int, S: int):
+    """``bt_factor``'s output from the plain version: (B, S, REC) stage
+    records, zeros in the padding and in the last stage's L."""
+    like = _like([e for row in D_full for e in row])
+    nl = b * (b + 1) // 2
+    nlp, bbp, _, rec_n = record_layout(b)
+    Lb = _blocks(L_full, (B, S - 1), like)
+    chol = torch.stack(_factor_plain(
+        _blocks(_full_lower(D_full, b), (B, S), like), Lb), 1)
+    il, jl = torch.tril_indices(b, b, device=like.device)
+    rec = like.new_zeros((B, S, rec_n))
+    rec[..., :nl] = chol[..., il, jl]
+    rec[:, :S - 1, nlp:nlp + b * b] = Lb.reshape(B, S - 1, b * b)
+    rec[..., nlp + bbp:nlp + bbp + b] = 1.0 / torch.diagonal(chol, 0, -2,
+                                                             -1)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # entry tables
 # ---------------------------------------------------------------------------
@@ -202,6 +233,15 @@ class SolveArgs(ctypes.Structure):
                 ("out_se", ctypes.c_int64),
                 ("out_sb", ctypes.c_int64),
                 ("out_ss", ctypes.c_int64)]
+
+
+class FactorArgs(ctypes.Structure):
+    """``BtFactorArgs`` of csrc/block_tridiag.cu: bt_factor's entry table
+    (D's lower triangle, L row-major) and its record output."""
+    _fields_ = [("ptr", ctypes.c_void_p * MAX_FACTOR_ENTRIES),
+                ("sb", ctypes.c_int64 * MAX_FACTOR_ENTRIES),
+                ("ss", ctypes.c_int64 * MAX_FACTOR_ENTRIES),
+                ("rec", ctypes.c_void_p)]
 
 
 class RhsArgs(ctypes.Structure):
@@ -240,16 +280,20 @@ def entry_views(entries, shape, device, out=None):
     return out
 
 
-def solve_entry_table(D_full, L_full, rhs, b: int, B: int, S: int, device):
-    """bt_solve's table from entry lists: (pointer, batch stride, stage
-    stride) for D's lower triangle (lo(i, j) = i (i + 1) / 2 + j), L
-    row-major, then rhs."""
-    full = torch.Size((B, S))
+def factor_entry_table(D_full, L_full, b: int, B: int, S: int, device):
+    """bt_factor's table from entry lists: (pointer, batch stride, stage
+    stride) for D's lower triangle (lo(i, j) = i (i + 1) / 2 + j), then L
+    row-major."""
     out = entry_views([D_full[i][j] for i in range(b) for j in range(i + 1)],
-                      full, device)
-    entry_views([e for row in L_full[:b] for e in row[:b]],
-                torch.Size((B, S - 1)), device, out)
-    return entry_views(rhs[:b], full, device, out)
+                      torch.Size((B, S)), device)
+    return entry_views([e for row in L_full[:b] for e in row[:b]],
+                       torch.Size((B, S - 1)), device, out)
+
+
+def solve_entry_table(D_full, L_full, rhs, b: int, B: int, S: int, device):
+    """bt_solve's table from entry lists: bt_factor's, then rhs."""
+    return entry_views(rhs[:b], torch.Size((B, S)), device,
+                       factor_entry_table(D_full, L_full, b, B, S, device))
 
 
 def _array_entries(A, pairs):
@@ -269,6 +313,14 @@ def _solve_args(table, out: torch.Tensor, out_strides) -> SolveArgs:
     return args
 
 
+def _factor_args(table, rec: torch.Tensor) -> FactorArgs:
+    args = FactorArgs()
+    n = len(table)
+    args.ptr[:n], args.sb[:n], args.ss[:n] = zip(*table)
+    args.rec = rec.data_ptr()
+    return args
+
+
 def _smem_bytes(symbol: str, *ints) -> int:
     fn = getattr(_build.load(SOURCE), symbol)
     fn.argtypes = [ctypes.c_int] * len(ints)
@@ -280,6 +332,12 @@ def solve_smem_bytes(S: int, b: int) -> int:
     """Shared memory of one bt_solve block at these shapes, in bytes (-1
     if one scenario's rows do not fit on the current card)."""
     return _smem_bytes("bt_solve_smem", S, b)
+
+
+def factor_smem_bytes(S: int, b: int) -> int:
+    """Shared memory of one bt_factor block at these shapes, in bytes (-1
+    if one scenario's rows do not fit on the current card)."""
+    return _smem_bytes("bt_factor_smem", S, b)
 
 
 def msolve_smem_bytes(S: int, R: int, b: int) -> int:
@@ -315,21 +373,6 @@ def _check(x: torch.Tensor, shape, device):
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"expected shape {tuple(shape)}, got "
                          f"{tuple(x.shape)}")
-
-
-def _stage_major(entries, B, T, like):
-    """Entries broadcastable to (B, T) -> contiguous (T, len, B), zeros
-    where an entry is a structural zero (bt_factor's input)."""
-    return torch.stack([_dense(e, (B, T), like).t()
-                        for e in entries], dim=1)
-
-
-def _lower(D_full, b):
-    return [D_full[i][j] for i in range(b) for j in range(i + 1)]
-
-
-def _flat(L_full, b):
-    return [L_full[i][j] for i in range(b) for j in range(b)]
 
 
 def _ptr(t: torch.Tensor):
@@ -392,24 +435,26 @@ def rhs_table(rhs_cols, b: int, B: int, S: int, R: int, device) -> RhsArgs:
 
 
 def prepare_multirhs_entries(D_full, L_full, rhs_cols, b: int):
-    """bt_factor's stage-major inputs, its factor output, bt_msolve's
-    right-hand-side table and x (b, B, S, R)."""
+    """bt_factor's table (entries read in place) with its record output
+    (B, S, REC), bt_msolve's right-hand-side table and x (b, B, S, R)."""
     like = _like(rhs_cols)
     B, S, R = like.shape
     dev = like.device
-    Dt = _stage_major(_lower(D_full, b), B, S, like)
-    Lt = _stage_major(_flat(L_full, b), B, S - 1, like)
-    _check(Dt, (S, b * (b + 1) // 2, B), dev)    # float32 entries only
-    _check(Lt, (S - 1, b * b, B), dev)
-    chol = torch.empty((S, b * (b + 1) // 2, B), dtype=torch.float32,
-                       device=dev)
+    rec = torch.empty((B, S, record_layout(b)[3]), dtype=torch.float32,
+                      device=dev)
+    fargs = _factor_args(factor_entry_table(D_full, L_full, b, B, S, dev),
+                         rec)
     x = torch.empty((b, B, S, R), dtype=torch.float32, device=dev)
-    return Dt, Lt, chol, rhs_table(rhs_cols, b, B, S, R, dev), x
+    return fargs, rec, rhs_table(rhs_cols, b, B, S, R, dev), x
 
 
-def _launch_msolve(chol, Lt, rargs: RhsArgs, x, S, B, R, b, device):
-    BT_MSOLVE([_ptr(chol), _ptr(Lt), ctypes.addressof(rargs), _ptr(x)],
-              [S, B, R, b], device)
+def _launch_factor(fargs: FactorArgs, S, B, b, device):
+    BT_FACTOR([ctypes.addressof(fargs)], [S, B, b], device)
+
+
+def _launch_msolve(rec, rargs: RhsArgs, x, S, B, R, b, device):
+    BT_MSOLVE([_ptr(rec), ctypes.addressof(rargs), _ptr(x)], [S, B, R, b],
+              device)
 
 
 def block_tridiag_multirhs_entries(D_full, L_full, rhs_cols, b: int):
@@ -426,8 +471,8 @@ def block_tridiag_multirhs_entries(D_full, L_full, rhs_cols, b: int):
                                                     rhs_cols, b)
     B, S, R = like.shape
     dev = like.device
-    Dt, Lt, chol, rargs, x = prepare_multirhs_entries(D_full, L_full,
-                                                      rhs_cols, b)
-    BT_FACTOR([_ptr(Dt), _ptr(Lt), _ptr(chol)], [S, B, b], dev)
-    _launch_msolve(chol, Lt, rargs, x, S, B, R, b, dev)
+    fargs, rec, rargs, x = prepare_multirhs_entries(D_full, L_full,
+                                                    rhs_cols, b)
+    _launch_factor(fargs, S, B, b, dev)
+    _launch_msolve(rec, rargs, x, S, B, R, b, dev)
     return list(x.unbind(0))

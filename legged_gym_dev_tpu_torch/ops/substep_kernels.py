@@ -12,12 +12,20 @@ On CUDA tensors it launches the kernel ``substep`` of ``csrc/substep.cu``
 ``substep_plain`` (``sim/kinematics.substep_core`` and the array-form
 contact model, as the JAX package's XLA path). The kernel takes flat
 terrain, per-robot (not per-env) springs and robots of 4 or 12 joints
-(``SUPPORTED_NJ``); it raises for anything else. Per-env DR rides in as
-value rows, as in the TPU kernel: an optional base payload mass and
-per-contact stiffness, damping and friction broadcast from scalars,
-``(nc,)``, ``(B, 1)`` or ``(B, 1, 1)``, and the slip velocity.
+(``SUPPORTED_NJ``); it raises for anything else.
+
+The kernel reads the state tensors and the per-env DR parameters in place,
+through a table of (pointer, batch stride, column stride) passed by value
+(``SubstepArgs``): an optional base payload mass (scalar or (B,)), per-
+contact stiffness, damping and friction (scalar, ``(nc,)``, ``(B, 1)``,
+``(B, 1, 1)`` or ``(B, nc)``; stride 0 where broadcast) and the slip
+velocity. It writes ``base_pos``, ``base_quat``, ``q`` and ``v`` into four
+contiguous (B, n) tensors. ``dr_rows`` is the TPU kernel's row layout of
+the same DR values, which the tests hold the table against.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -31,7 +39,7 @@ SOURCE = "substep.cu"
 SUPPORTED_NJ = (4, 12)   # joint counts the CUDA source instantiates
 MAX_NC = 32              # contact spheres the kernel's model struct holds
 
-SUBSTEP = _build.Kernel(SOURCE, "substep", n_ptr=4, n_int=4)
+SUBSTEP = _build.Kernel(SOURCE, "substep", n_ptr=3, n_int=3)
 
 
 def reset_launches() -> None:
@@ -136,22 +144,95 @@ def pack_model(sim) -> np.ndarray:
                            for p in parts])
 
 
-def _model_tensor(sim, device) -> torch.Tensor:
-    """``pack_model`` on the card, cached on the model per device, springs
-    object and scalar settings (a replaced sim shares them)."""
+def pack_topology(model, team: int) -> np.ndarray:
+    """The team's schedules in the int32 layout of ``Topo<NJ>`` in
+    ``csrc/substep.cu`` (same field order), for ``team`` lanes per env:
+    each lane's FK joints (whole subtrees of the base, dealt to the lanes
+    in turn, joints in index order); each body's Jacobian columns (dofs 3,
+    4, 5, then those of the joints on its path, ascending); the prismatic
+    joints as a bit mask; and each body's entries of M, one int each: the
+    packed index lo(l, k) | a << 8 | b << 13 | kind << 18, for the pairs
+    of column positions a >= b (kind 1 if both columns are rotational, else
+    0), then each column a against base dof b < 3 (kind 2)."""
+    nj, nb = model.nj, model.nb
+    na = nj + 3
+    parent = [int(p) for p in model.parent]
+    branch, roots = [], 0
+    sched = [[] for _ in range(team)]
+    for j in range(nj):
+        if parent[j] == 0:
+            br, roots = roots, roots + 1
+        elif parent[j] - 1 < j:
+            br = branch[parent[j] - 1]
+        else:
+            raise ValueError("joints are not in topological order")
+        branch.append(br)
+        sched[br % team].append(j)
+    prism = sum(1 << j for j in range(nj) if float(model.jtype[j]) != 0.0)
+
+    def lo(i, j):
+        return i * (i + 1) // 2 + j
+
+    def rotational(k):
+        return k < 6 or not prism >> (k - 6) & 1
+
+    cols = [[3, 4, 5] + sorted(6 + j for j in dofs)
+            for dofs in _ancestor_dofs(model.parent, nj)]
+    ents = []
+    for c in cols:
+        ents.append(
+            [lo(c[a], c[b]) | a << 8 | b << 13
+             | int(rotational(c[a]) and rotational(c[b])) << 18
+             for a in range(len(c)) for b in range(a + 1)]
+            + [lo(c[a], i) | a << 8 | i << 13 | 2 << 18
+               for a in range(len(c)) for i in range(3)])
+
+    def rows(lists, width):
+        out = np.zeros((len(lists), width), np.int32)
+        for r, x in enumerate(lists):
+            out[r, :len(x)] = x
+        return out.ravel()
+
+    return np.concatenate([
+        np.asarray([len(js) for js in sched], np.int32), rows(sched, nj),
+        np.asarray([len(c) for c in cols], np.int32), rows(cols, na),
+        np.asarray([prism], np.int32),
+        np.asarray([len(e) for e in ents], np.int32),
+        rows(ents, na * (na + 1) // 2 + 3 * na)])
+
+
+def _query(symbol: str, nj: int) -> int:
+    """An int-valued query of the kernel's library, e.g. a struct's size."""
+    fn = getattr(_build.load(SOURCE), symbol)
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(nj)
+
+
+def _model_tensors(sim, device):
+    """``pack_model`` and ``pack_topology`` on the card, cached on the model
+    per device, springs object and scalar settings (a replaced sim shares
+    them)."""
     cache = sim.model.__dict__.setdefault("_substep_params", {})
     key = (str(device), id(sim.springs), sim.joint_limit_stiffness,
            sim.joint_limit_damping, sim.base_vel_limit, sim.dt)
     hit = cache.get(key)
     if hit is None or hit[0] is not sim.springs:
+        nj = sim.model.nj
         packed = pack_model(sim)
-        want = _build.load(SOURCE).substep_model_floats(sim.model.nj)
+        want = _query("substep_model_floats", nj)
         if want != packed.size:
             raise RuntimeError(f"model packing has {packed.size} floats, "
                                f"the kernel expects {want}")
-        hit = (sim.springs, torch.as_tensor(packed, device=device))
+        topo = pack_topology(sim.model, _query("substep_team", nj))
+        want = _query("substep_topo_ints", nj)
+        if want != topo.size:
+            raise RuntimeError(f"schedule packing has {topo.size} ints, "
+                               f"the kernel expects {want}")
+        hit = (sim.springs, torch.as_tensor(packed, device=device),
+               torch.as_tensor(topo, device=device))
         cache[key] = hit
-    return hit[1]
+    return hit[1], hit[2]
 
 
 def dr_rows(sim, B: int, device) -> torch.Tensor:
@@ -176,8 +257,103 @@ def dr_rows(sim, B: int, device) -> torch.Tensor:
     return torch.cat(rows, dim=0).contiguous()
 
 
-def _ptr(t: torch.Tensor):
-    return t.data_ptr() or None
+class SubstepArgs(ctypes.Structure):
+    """``SubstepArgs`` of csrc/substep.cu: the five state tensors and the
+    five DR parameters as (pointer, batch stride, column stride), in
+    elements, and the four outputs."""
+    _fields_ = [("inp", ctypes.c_void_p * 5),
+                ("in_sb", ctypes.c_int64 * 5),
+                ("in_sc", ctypes.c_int64 * 5),
+                ("dr", ctypes.c_void_p * 5),
+                ("dr_sb", ctypes.c_int64 * 5),
+                ("dr_sc", ctypes.c_int64 * 5),
+                ("out", ctypes.c_void_p * 4)]
+
+
+def state_table(state: RobotState, tau: torch.Tensor, nj: int, B: int,
+                device):
+    """(pointer, batch stride, column stride) of base_pos, base_quat, q, v
+    and tau, each read in place as a (B, n) view; raises for anything but
+    float32 on ``device`` that broadcasts to its shape."""
+    rows = []
+    for name, t, n in (("base_pos", state.base_pos, 3),
+                       ("base_quat", state.base_quat, 4), ("q", state.q, nj),
+                       ("v", state.v, nj + 6), ("tau", tau, nj)):
+        if t.dtype is not torch.float32 or t.device != device:
+            raise TypeError(f"{name}: expected float32 on {device}, got "
+                            f"{t.dtype} on {t.device}")
+        if t.shape != (B, n):
+            try:
+                t = t.expand(B, n)
+            except RuntimeError as err:
+                raise ValueError(f"{name} of shape {tuple(t.shape)} is not "
+                                 f"({B}, {n})") from err
+        rows.append((t.data_ptr(), *t.stride()))
+    return rows
+
+
+def dr_table(sim, B: int, device):
+    """(pointer, batch stride, column stride) of the DR parameters: base
+    payload mass ((0, 0, 0) without one), contact stiffness, damping,
+    friction and slip velocity, each a view broadcast to (B,) or (B, nc)
+    (stride 0 along what is broadcast); the views, which the pointers
+    point into, are returned too."""
+    c = sim.contact
+    nc = len(sim.model.contact_body)
+
+    def view(p, shape):
+        p = torch.as_tensor(p, dtype=torch.float32, device=device)
+        if p.ndim == 3:                        # (B, 1, 1) friction
+            p = p.reshape(p.shape[0], -1)
+        return p.expand(shape)
+
+    views = [None if sim.base_mass_delta is None
+             else view(sim.base_mass_delta, (B,))]
+    views += [view(p, (B, nc)) for p in (c.stiffness, c.damping,
+                                         c.friction)]
+    views.append(view(c.slip_vel, (B,)))
+    rows = [(0, 0, 0) if v is None else
+            (v.data_ptr(), v.stride(0), v.stride(1) if v.ndim > 1 else 0)
+            for v in views]
+    return rows, views
+
+
+def _dr_args(sim, B: int, device):
+    """An argument struct with only the DR table filled in, and the views it
+    points into, kept on the sim: the substeps of one env step share one
+    sim. It is rebuilt when any DR tensor object of the sim was replaced
+    (the cache holds them, so their identities stay unique)."""
+    c = sim.contact
+    refs = (c.stiffness, c.damping, c.friction, c.slip_vel,
+            sim.base_mass_delta, B, device)
+    hit = sim.__dict__.get("_substep_dr")
+    if hit is None or any(x is not y for x, y in zip(hit[0][:5], refs)) \
+            or hit[0][5:] != refs[5:]:
+        args = SubstepArgs()
+        rows, views = dr_table(sim, B, device)
+        args.dr[:], args.dr_sb[:], args.dr_sc[:] = zip(*rows)
+        hit = (refs, args, views)
+        sim.__dict__["_substep_dr"] = hit
+    return hit[1], hit[2]
+
+
+def substep_args(sim, state: RobotState, tau: torch.Tensor, outs):
+    """The kernel's argument struct (and the DR views it points into)."""
+    model, dev = sim.model, state.base_pos.device
+    B = state.base_pos.shape[0]
+    template, views = _dr_args(sim, B, dev)
+    args = SubstepArgs.from_buffer_copy(template)
+    ins = state_table(state, tau, model.nj, B, dev)
+    args.inp[:], args.in_sb[:], args.in_sc[:] = zip(*ins)
+    args.out[:] = [o.data_ptr() for o in outs]
+    return args, views
+
+
+def launch(sim, args: SubstepArgs, B: int, device) -> None:
+    """The kernel on a prepared argument struct."""
+    params, topo = _model_tensors(sim, device)
+    SUBSTEP([params.data_ptr(), topo.data_ptr(), ctypes.addressof(args)],
+            [sim.model.nj, len(sim.model.contact_body), B], device)
 
 
 def substep(sim, state: RobotState, tau: torch.Tensor) -> RobotState:
@@ -197,16 +373,9 @@ def substep(sim, state: RobotState, tau: torch.Tensor) -> RobotState:
         raise NotImplementedError("the substep kernel takes flat terrain "
                                   "only")
     B = state.base_pos.shape[0]
-    xs = torch.cat([state.base_pos, state.base_quat, state.q, state.v, tau],
-                   dim=1)
-    if xs.dtype != torch.float32 or tuple(xs.shape) != (B, 7 + nj + nv + nj):
-        raise TypeError(f"expected float32 (B, {7 + nj + nv + nj}) inputs, "
-                        f"got {xs.dtype} {tuple(xs.shape)}")
-    xs = xs.t().contiguous()
-    dr = dr_rows(sim, B, dev)
-    out = torch.empty((7 + nj + nv, B), dtype=torch.float32, device=dev)
-    SUBSTEP([_ptr(_model_tensor(sim, dev)), _ptr(xs), _ptr(dr), _ptr(out)],
-            [nj, nc, B, int(sim.base_mass_delta is not None)], dev)
-    return RobotState(base_pos=out[0:3].t(), base_quat=out[3:7].t(),
-                      q=out[7:7 + nj].t(), v=out[7 + nj:].t())
+    outs = [torch.empty((B, n), dtype=torch.float32, device=dev)
+            for n in (3, 4, nj, nv)]
+    args, _views = substep_args(sim, state, tau, outs)
+    launch(sim, args, B, dev)
+    return RobotState(*outs)
 

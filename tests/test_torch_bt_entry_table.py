@@ -7,7 +7,8 @@ used to build before the kernels read in place: dense (B, T) entries,
 structural zeros materialised, D's upper triangle mirrored from the lower.
 Cases: structural zeros, a tensor shared between D[1][0] and D[0][1],
 stride-0 entries along the batch and along the stages, the array form
-with non-contiguous strides, and bt_msolve's right-hand-side columns."""
+with non-contiguous strides, bt_msolve's right-hand-side columns, and
+bt_factor's table and the stage records it hands bt_msolve."""
 import pytest
 import torch
 
@@ -179,3 +180,57 @@ def test_entry_views_reject_what_the_kernel_cannot_read():
         btk.entry_views([torch.zeros(2, 3, dtype=torch.float64)], shape, CPU)
     with pytest.raises(ValueError):
         btk.entry_views([torch.zeros(3, 3)], shape, CPU)
+
+
+@pytest.mark.parametrize("b", [3, 5, 8])
+@pytest.mark.parametrize("part", ["factor_table", "records"])
+def test_factor_tables_match_the_stage_major_stack(part, b):
+    """bt_factor reads D and L in place and writes per-stage records that
+    bt_msolve copies whole. ``factor_table``: its table rows rebuilt over
+    their storage against the stage-major (S, NL, B) and (S-1, b*b, B)
+    stacks of D and L the multi-RHS wrapper used to build. ``records``:
+    the (B, S, REC) records of the plain version, unpacked by
+    ``record_layout``, against the stage-major factor the kernel used to
+    write, that L stack, the reciprocals of the factor's diagonal and zero
+    padding."""
+    B, S = 5, 7
+    if b >= 4:
+        (Df, Lf, _), _ = special_entries(B, S, b, seed=b)
+    else:
+        Df, Lf, _ = _plain_entries(B, S, b)
+    nl = b * (b + 1) // 2
+    D_sym = [[Df[i][j] if i >= j else Df[j][i] for j in range(b)]
+             for i in range(b)]
+    lower = stage_major_stack([D_sym[i][j] for i in range(b)
+                               for j in range(i + 1)], (B, S))
+    flat = stage_major_stack([Lf[i][j] for i in range(b) for j in range(b)],
+                             (B, S - 1))
+    if part == "factor_table":
+        table = btk.factor_entry_table(Df, Lf, b, B, S, CPU)
+        assert len(table) == nl + b * b <= btk.MAX_FACTOR_ENTRIES
+        ts = tensors_of(Df, Lf)
+        assert torch.equal(rebuild(table[:nl], (B, S), ts), lower)
+        assert torch.equal(rebuild(table[nl:], (B, S - 1), ts), flat)
+        return
+    nlp, bbp, bp, rec_n = btk.record_layout(b)
+    assert rec_n % 4 == 0 and (nlp, bbp, bp) == tuple(
+        (n + 3) // 4 * 4 for n in (nl, b * b, b))
+    rec = btk.factor_records_plain(Df, Lf, b, B, S)
+    assert rec.shape == (B, S, rec_n)
+    blocks = torch.stack([torch.stack([dense_entry(D_sym[i][j], (B, S))
+                                       for j in range(b)], -1)
+                          for i in range(b)], -2)
+    Lb = torch.stack([torch.stack([dense_entry(Lf[i][j], (B, S - 1))
+                                   for j in range(b)], -1)
+                      for i in range(b)], -2)
+    chol = torch.stack(btk._factor_plain(blocks, Lb), 1)
+    il, jl = torch.tril_indices(b, b)
+    assert torch.equal(rec[..., :nl].permute(1, 2, 0),
+                       chol[:, :, il, jl].permute(1, 2, 0))
+    assert torch.equal(rec[:, :S - 1, nlp:nlp + b * b].permute(1, 2, 0),
+                       flat)
+    assert torch.equal(rec[..., nlp + bbp:nlp + bbp + b],
+                       1.0 / torch.diagonal(chol, 0, -2, -1))
+    pad = torch.ones(rec_n, dtype=torch.bool)
+    pad[:nl] = pad[nlp:nlp + b * b] = pad[nlp + bbp:nlp + bbp + b] = False
+    assert not rec[..., pad].any() and not rec[:, S - 1, nlp:nlp + bbp].any()

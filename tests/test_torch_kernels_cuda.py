@@ -114,9 +114,12 @@ def test_bt_solve_matches_plain_on_card(card, B, S, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,b,R", [(8, 12, 5, 7), (1024, 51, 5, 50),
-                                     (2048, 51, 5, 51), (1000, 51, 5, 3)])
+                                     (2048, 51, 5, 51), (1000, 51, 5, 3),
+                                     (40, 400, 8, 3)])
 def test_bt_factor_msolve_match_plain_on_card(card, B, S, b, R):
-    """bt_factor + bt_msolve through the multi-RHS wrapper."""
+    """bt_factor + bt_msolve through the multi-RHS wrapper (the last case:
+    a long horizon at the largest block, where one scenario's rows take
+    most of a block's shared memory)."""
     D, L, rhs = make_systems(B, S, b, R, seed=B + R)
     Dt, Lt = entry_lists(D, L, lambda a: torch.as_tensor(a, device=card))
     cols = [torch.as_tensor(rhs[:, :, i, :], device=card) for i in range(b)]
@@ -142,6 +145,57 @@ def test_bt_msolve_every_block_size_on_card(card, b, B):
     """bt_factor + bt_msolve at S=51, R=50 for every instantiated block
     size, at the NN batch and a ragged one."""
     test_bt_factor_msolve_match_plain_on_card(card, B, 51, b, 50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [12, 51])
+@pytest.mark.parametrize("B", [1024, 1000, 2048])
+@pytest.mark.parametrize("b", btk.SUPPORTED_B)
+def test_bt_factor_records_match_plain_on_card(card, b, B, S):
+    """bt_factor alone, entries read in place: its (B, S, REC) stage
+    records (factor, L_k, 1 / c_jj, zero padding) against the plain
+    version's, and the factor part against ``_factor_plain`` directly."""
+    D, L, _ = make_systems(B, S, b, seed=B + S + b)
+    Dt, Lt = entry_lists(D, L, lambda a: torch.as_tensor(a, device=card))
+    cols = [torch.zeros(B, S, 1, device=card)] * b
+    fargs, rec, _, _ = btk.prepare_multirhs_entries(Dt, Lt, cols, b)
+    btk.reset_launches()
+    btk._launch_factor(fargs, S, B, b, card)
+    ref = btk.factor_records_plain(Dt, Lt, b, B, S)
+    chol = torch.stack(btk._factor_plain(torch.as_tensor(D, device=card),
+                                         torch.as_tensor(L, device=card)), 1)
+    il, jl = torch.tril_indices(b, b, device=card)
+    torch.cuda.synchronize()
+    assert btk.launches()["bt_factor"] == 1
+    assert rel(rec, ref) <= 1e-4
+    assert rel(rec[..., :b * (b + 1) // 2], chol[:, :, il, jl]) <= 1e-4
+    nlp, bbp, bp, rec_n = btk.record_layout(b)
+    pad = torch.ones(rec_n, dtype=torch.bool, device=card)
+    pad[:b * (b + 1) // 2] = pad[nlp:nlp + b * b] = False
+    pad[nlp + bbp:nlp + bbp + b] = False
+    assert not bool(rec[..., pad].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4, 5, 8])
+def test_bt_factor_entry_table_cases_on_card(card, b):
+    """bt_factor's records from entry lists with structural zeros (null
+    pointers), a tensor shared between D[1][0] and D[0][1], and entries
+    expanded along the batch and along the stages (stride 0), against the
+    plain version of the dense system."""
+    B, S = 1000, 51
+    (Df, Lf, r), (D, L, _) = special_entries(B, S, b, 3, seed=b,
+                                             device=card)
+    fargs, rec, _, _ = btk.prepare_multirhs_entries(Df, Lf, r, b)
+    btk._launch_factor(fargs, S, B, b, card)
+    Dd, Ld = (torch.as_tensor(a, device=card) for a in (D, L))
+    chol = torch.stack(btk._factor_plain(Dd, Ld), 1)
+    il, jl = torch.tril_indices(b, b, device=card)
+    nlp = btk.record_layout(b)[0]
+    torch.cuda.synchronize()
+    assert rel(rec[..., :b * (b + 1) // 2], chol[:, :, il, jl]) <= 1e-4
+    assert torch.equal(rec[:, :S - 1, nlp:nlp + b * b],
+                       Ld.reshape(B, S - 1, b * b))
 
 
 @pytest.mark.cuda
@@ -230,6 +284,32 @@ def test_substep_matches_plain_on_card(card, robot, B, dr):
     assert sk.launches() == {"substep": 1}
     for name in ("base_pos", "base_quat", "q", "v"):
         assert rel(getattr(out, name), getattr(ref, name)) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [False, True])
+@pytest.mark.parametrize("form", ["scalar", "per_sphere", "B1", "B11",
+                                  "Bnc"])
+@pytest.mark.parametrize("robot", ["quadruped", "hopper4"])
+def test_substep_views_and_dr_forms_on_card(card, robot, form, payload):
+    """K3 reading its inputs in place: the state handed as strided views
+    (rows of one (n, B) tensor, a quaternion broadcast over the envs) and
+    the contact parameters in each broadcast form, with and without a base
+    payload mass, against the plain version on the same values."""
+    rc = robot_cases()
+    B = 1000
+    inp = rc.substep_inputs(robot, B, seed=len(form) + 3 * payload)
+    sim, plain_sim = rc.dr_form_sims(rc.torch_sim(robot, card), form, B,
+                                     payload, seed=11)
+    st, tau = rc.torch_state(inp, card)
+    views = rc.strided_state(st)
+    out = sk.substep(sim, views, tau)
+    ref = sk.substep_plain(plain_sim, st, tau)
+    torch.cuda.synchronize()
+    for name in ("base_pos", "base_quat", "q", "v"):
+        got = getattr(out, name)
+        assert got.is_contiguous() and bool(torch.isfinite(got).all())
+        assert rel(got, getattr(ref, name)) <= 1e-4, name
 
 
 @pytest.mark.cuda

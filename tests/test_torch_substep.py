@@ -18,7 +18,10 @@ from legged_gym_dev_tpu.ops.pallas_substep import pallas_substep
 from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
 from tests.torch_port_cases import jax_robot_sim, jax_robot_state
 from tests.torch_robot_cases import (
+    DR_FORMS,
     ROBOTS,
+    dr_form_sims,
+    strided_state,
     substep_inputs,
     torch_sim,
     torch_state,
@@ -139,3 +142,119 @@ def test_dr_rows_broadcast_as_the_tpu_kernel():
     np.testing.assert_allclose(rows[1 + 2 * nc + nc - 1].numpy(),
                                inp["friction"][:, 0, 0])
     np.testing.assert_allclose(rows[-1].numpy(), np.full(B, 0.1, np.float32))
+
+
+def _gather(row, shape, tensors):
+    """The (B, n) or (B,) values a table row (pointer, batch stride, column
+    stride) points at, read through the storage of one of ``tensors``."""
+    p, sb, sc = row
+    for t in tensors:
+        st = t.untyped_storage()
+        if st.data_ptr() <= p < st.data_ptr() + st.nbytes():
+            base = torch.tensor([], dtype=torch.float32).set_(st)
+            return torch.as_strided(base, shape, (sb, sc)[:len(shape)],
+                                    (p - st.data_ptr()) // 4)
+    raise AssertionError(f"pointer {p:#x} is in no tensor")
+
+
+STATE_FORMS = [(r, f) for r in sorted(ROBOTS) for f in ("contiguous",
+                                                          "strided")]
+DR_CASES = [(f, bmd) for f in DR_FORMS for bmd in (False, True)]
+
+
+@pytest.mark.parametrize(
+    "case", [("state",) + c for c in STATE_FORMS]
+    + [("dr", "quadruped") + c for c in DR_CASES],
+    ids=lambda c: "-".join(str(x) for x in c))
+def test_substep_tables_gather_the_tpu_rows(case):
+    """The kernel reads the state and the DR parameters in place, through
+    (pointer, batch stride, column stride). Gathered through those strides
+    on CPU tensors, the state table gives the TPU kernel's ``xs`` rows
+    (base_pos, base_quat, q, v, tau) and the DR table ``dr_rows`` (payload
+    mass, stiffness, damping and friction per sphere, slip), for state
+    tensors handed as the env hands them (strided views, a quaternion
+    broadcast over envs) and each DR broadcast form."""
+    B = 6
+    robot = case[1]
+    inp = substep_inputs(robot, B, seed=4)
+    sim = torch_sim(robot, "cpu", inp)
+    nj, nv = sim.model.nj, sim.model.nv
+    st, tau = torch_state(inp)
+    cpu = torch.device("cpu")
+    if case[0] == "state":
+        if case[2] == "strided":
+            st = strided_state(st)
+            assert not st.q.is_contiguous()
+        rows = sk.state_table(st, tau, nj, B, cpu)
+        xs = torch.cat([st.base_pos, st.base_quat, st.q, st.v, tau], 1).t()
+        got = torch.cat([_gather(r, (B, n), [st.base_pos, st.base_quat,
+                                             st.q, st.v, tau]).t()
+                         for r, n in zip(rows, (3, 4, nj, nv, nj))])
+        assert torch.equal(got, xs)
+        return
+    form, bmd = case[2], case[3]
+    sim, plain_sim = dr_form_sims(sim, form, B, bmd, seed=len(form))
+    nc = len(sim.model.contact_body)
+    rows, views = sk.dr_table(sim, B, cpu)
+    ref = sk.dr_rows(sim, B, cpu)
+    assert torch.equal(ref, sk.dr_rows(plain_sim, B, cpu))
+    live = [v for v in views if v is not None]
+    got = []
+    if bmd:
+        got.append(_gather(rows[0], (B,), live)[None])
+    else:
+        assert rows[0] == (0, 0, 0)
+    for r in rows[1:4]:
+        got.append(_gather(r, (B, nc), live).t())
+    got.append(_gather(rows[4], (B,), live)[None])
+    assert torch.equal(torch.cat(got), ref)
+    if form in ("scalar", "per_sphere"):
+        assert rows[1][1] == 0                   # broadcast over envs
+
+
+@pytest.mark.parametrize("robot,team", [("quadruped", 8), ("quadruped", 4),
+                                        ("hopper4", 4), ("hopper4", 8)])
+def test_pack_topology_schedules(robot, team):
+    """The team's schedules the kernel reads (``Topo<NJ>``): every joint in
+    exactly one lane's FK list, after its parent joint in the same list;
+    each body's Jacobian columns the base rotation dofs and the joints on
+    its path; and each body's entries of M exactly those the one-thread
+    kernel adds to for that body (pairs of its columns, and each column
+    against the three base translation dofs), with the rotational term
+    where both columns are rotational."""
+    from legged_gym_dev_tpu_torch.sim.kinematics import _ancestor_dofs
+
+    m = torch_sim(robot, "cpu").model
+    nj, nb = m.nj, m.nb
+    na = nj + 3
+    ne_max = na * (na + 1) // 2 + 3 * na
+    t = sk.pack_topology(m, team)
+    sizes = [team, team * nj, nb, nb * na, 1, nb, nb * ne_max]
+    assert t.size == sum(sizes)
+    slen, sched, alen, adof, prism, elen, ent = np.split(
+        t, np.cumsum(sizes)[:-1])
+    sched, adof, ent = (sched.reshape(team, nj), adof.reshape(nb, na),
+                        ent.reshape(nb, ne_max))
+    lanes = [list(sched[ln, :slen[ln]]) for ln in range(team)]
+    assert sorted(j for js in lanes for j in js) == list(range(nj))
+    for js in lanes:
+        for i, j in enumerate(js):
+            assert m.parent[j] == 0 or m.parent[j] - 1 in js[:i]
+    prismatic = {j for j in range(nj) if m.jtype[j] != 0}
+    assert int(prism[0]) == sum(1 << j for j in prismatic)
+
+    def lo(i, j):
+        return i * (i + 1) // 2 + j
+
+    for n, path in enumerate(_ancestor_dofs(m.parent, nj)):
+        cols = [3, 4, 5] + sorted(6 + j for j in path)
+        assert list(adof[n, :alen[n]]) == cols
+        got = {}
+        for w in ent[n, :elen[n]]:
+            e, a, b, kind = w & 0xff, w >> 8 & 31, w >> 13 & 31, w >> 18
+            got[int(e)] = (int(kind), cols[a], b if kind == 2 else cols[b])
+        rot = {k for k in cols if k - 6 not in prismatic}
+        want = {lo(l, k): (int(l in rot and k in rot), l, k)
+                for l in cols for k in cols if k <= l}
+        want.update({lo(l, i): (2, l, i) for l in cols for i in range(3)})
+        assert got == want and len(got) == elen[n]

@@ -215,3 +215,55 @@ def torch_state(inputs, device="cpu"):
     t = {k: torch.as_tensor(inputs[k], device=device)
          for k in ("base_pos", "base_quat", "q", "v", "tau")}
     return RobotState(t["base_pos"], t["base_quat"], t["q"], t["v"]), t["tau"]
+
+
+# Broadcast forms of the per-env contact parameters the substep kernel's
+# table reads (stride 0 along what is broadcast).
+DR_FORMS = ("scalar", "per_sphere", "B1", "B11", "Bnc")
+
+
+def dr_form_sims(sim, form, B, payload, seed=0):
+    """Two sims with the same contact stiffness and damping multipliers and
+    friction, drawn with numpy: the first holds each in one broadcast form
+    of ``DR_FORMS`` (scalar, (nc,), (B, 1), (B, 1, 1), (B, nc)), as the
+    kernel's table reads them; the second as (B, nc), (B, nc) and
+    (B, nc, 1), the shapes the plain contact model broadcasts. With
+    ``payload`` both carry a (B,) base payload mass."""
+    import torch
+
+    nc = len(sim.model.contact_body)
+    dev = sim.contact.stiffness.device
+    rng = np.random.default_rng(seed)
+    shape = {"scalar": (), "per_sphere": (nc,), "B1": (B, 1),
+             "B11": (B, 1, 1), "Bnc": (B, nc)}[form]
+
+    def draw(shape, lo=0.5, hi=1.5):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32),
+                               device=dev)
+
+    def full(p):
+        return (p.reshape(B, -1) if p.ndim == 3 else p).expand(B, nc)
+
+    c = sim.contact
+    k, d, mu = c.stiffness * draw(shape), c.damping * draw(shape), \
+        draw(shape)
+    bmd = draw((B,), -1.0, 1.0) if payload else None
+    return (sim.replace(contact=c.replace(stiffness=k, damping=d,
+                                          friction=mu),
+                        base_mass_delta=bmd),
+            sim.replace(contact=c.replace(stiffness=full(k), damping=full(d),
+                                          friction=full(mu)[..., None]),
+                        base_mass_delta=bmd))
+
+
+def strided_state(state):
+    """The same state handed as views, as the env can hand it on: base_pos,
+    q and v as rows of one (n, B) tensor (strided), and env 0's base
+    quaternion broadcast over the envs (``substep_inputs`` draws the same
+    quaternion for every env)."""
+    import torch
+
+    B, nj = state.q.shape
+    wide = torch.cat([state.base_pos, state.q, state.v], 1).t().contiguous()
+    return type(state)(wide[0:3].t(), state.base_quat[:1].expand(B, 4),
+                       wide[3:3 + nj].t(), wide[3 + nj:].t())
