@@ -23,17 +23,37 @@ Runs on one CUDA card (an H100 for the recorded numbers):
 6. a ``torch.profiler`` window of each mode: device busy share and the
    kernels with the most device time;
 7. substep phase: the physics-substep kernel (``csrc/substep.cu``) against
-   its plain PyTorch version at B=4096 on both test robots
-   (``tests/torch_robot_cases.py``: the 12-joint quadruped and the 4-joint
-   robot with a prismatic foot and springs), random well-conditioned
-   states with per-env DR rows; kernel, plain and bound times;
+   its plain PyTorch version at B=4096 on the three test robots
+   (``tests/torch_robot_cases.py``: the 12-joint quadruped, the 4-joint
+   robot with a prismatic foot and springs, and the hopper of the
+   training path, nj=4, nc=5), random well-conditioned states with
+   per-env DR rows; kernel, plain and bound times;
 8. rl phase (main path of the RL slice): the ROM-trajectory task on the
    quadruped at B=4096 (``make_trajectory_env`` with the ANYmal-C
    settings), a random-weight 512-256-128 ``ActorCritic`` and one PPO
    rollout of 24 env steps (96 substep launches, counted), env-steps/s,
    the share of ``_contact_forces``, and a ``torch.profiler`` window of
    one env step;
-9. prints one ``{"kernels": [...]}`` line, then, last,
+9. train phase (main path of the training slice), through the port's
+   ``cli train`` on the card: ``hopper_trajectory`` on the test hopper at
+   B=4096 with a config that takes ``configs/rl/hopper_single_int.yaml``
+   (read by the port's ``load_config``: reward scales, the 8-stage
+   curriculum, a [128, 64, 32] ELU policy from a seed) and sets
+   ``env.urdf_path``, PPO defaults (24 steps, 5 epochs, 4 minibatches,
+   adaptive KL), the runner from ``task_registry.make_alg_runner``, 3
+   iterations of ``OnPolicyRunner.learn`` (576 substep launches,
+   counted), every iteration's metrics, learning env-steps/s, and the
+   checkpoint round trip (the run's ``latest`` resumed by
+   ``make_alg_runner(resume=True)``: the same inference policy bit for
+   bit); then one more iteration driven as ``rollout`` and
+   ``ppo_update`` between CUDA events for the rollout / update split and
+   the env's ms per step; at the end of the script a ``torch.profiler``
+   window of one hopper env step (busy share, device ops) and the share of
+   the controller's per-substep contact FK in its time and its ATen ops;
+10. train_rnn phase: the same for 1 iteration of
+   ``hopper_single_int_recurrent.yaml`` (LSTM 256, [256, 128]; 192
+   launches);
+11. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -41,7 +61,8 @@ result line. Without a CUDA device it exits non-zero at once.
 
 Usage: ``python3 chip_smoke.py`` (all phases), or
 ``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
-debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl).
+debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl,
+train, train_rnn).
 """
 import argparse
 import concurrent.futures
@@ -55,7 +76,8 @@ from pathlib import Path
 
 import numpy as np
 
-PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl")
+PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl",
+          "train", "train_rnn")
 N, H_REV = 50, 10
 B_L1, B_NN = 2048, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -74,6 +96,10 @@ REPLACES = {
 }
 TOL_REL = 1e-4   # kernel vs plain version: max |diff| / max |plain|
 B_RL = 4096      # envs of the RL rollout and of the substep check
+ROOT = Path(__file__).resolve().parent
+TRAIN_ITERS = {"train": 3, "train_rnn": 1}
+TRAIN_CONFIGS = {"train": "configs/rl/hopper_single_int.yaml",
+                 "train_rnn": "configs/rl/hopper_single_int_recurrent.yaml"}
 
 
 def ptxas_summary(report):
@@ -661,7 +687,7 @@ def robot_cases():
 
     name = "torch_robot_cases"
     if name not in sys.modules:
-        path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+        path = ROOT / "tests" / f"{name}.py"
         spec = importlib.util.spec_from_file_location(name, path)
         module = importlib.util.module_from_spec(spec)
         sys.modules[name] = module
@@ -713,15 +739,16 @@ def distinct(t):
 
 
 def substep_phase(dev):
-    """K3 against its plain version at B=4096 on both test robots; times
-    and the bound. Returns the quadruped's record (the main path's)."""
+    """K3 against its plain version at B=4096 on the three test robots;
+    times and the bound. Returns the quadruped's record (the rollout's)
+    with the others nested, and the hopper's (the training path's)."""
     import torch
 
     from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
 
     rc = robot_cases()
     rec = {}
-    for robot in ("quadruped", "hopper4"):
+    for robot in ("quadruped", "hopper4", "hopper"):
         inp = rc.substep_inputs(robot, B_RL, seed=7, dr=True)
         sim = rc.torch_sim(robot, dev, inp)
         st, tau = rc.torch_state(inp, dev)
@@ -781,7 +808,7 @@ def substep_phase(dev):
                       ("max_abs_err", "ms", "kernel_only_ms",
                        "kernel_device_ms", "plain_ms", "bound_ms",
                        "bound_by")}
-    return out
+    return out, rec["hopper"]
 
 
 def rl_policy(num_obs, num_actions, seed, dev):
@@ -860,9 +887,28 @@ def rl_rollout(dev):
     return env, model, state, gen, rec
 
 
-def rl_profile(env, model, state, gen):
+def dispatched_ops(fn):
+    """ATen operations ``fn`` dispatches (views included): the host's
+    work, which bounds a host-bound step."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def step_profile(label, env, model, state, contact_fn, contact_calls):
     """Where one env step's time goes: a torch.profiler window of one
-    step, and CUDA-event times of a step and of its ``_contact_forces``."""
+    step; CUDA-event times of a step and of its contact FK and forces
+    (``contact_fn``, called ``contact_calls`` times a step), and the share
+    of the step's dispatched ATen ops that those calls make."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -880,9 +926,9 @@ def rl_profile(env, model, state, gen):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         step_ms = time_ms(lambda: env.step(state, actions), 5, warmup=1)
-        robot, sim = state.robot, env._dr_sim(state)
-        cf_ms = time_ms(lambda: env._contact_forces(robot, sim), 5,
-                        warmup=1)
+        cf_ms = time_ms(contact_fn, 5, warmup=1)
+        step_ops = dispatched_ops(lambda: env.step(state, actions))
+        cf_ops = dispatched_ops(contact_fn)
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -891,7 +937,7 @@ def rl_profile(env, model, state, gen):
             n_us[1] += e.time_range.elapsed_us()
     ops = sum(v[0] for v in by_name.values())
     busy_ms = 1e-3 * sum(v[1] for v in by_name.values())
-    check(ops > 0, "rl profile: the trace holds no device op")
+    check(ops > 0, f"{label} profile: the trace holds no device op")
     k3_ms = 1e-3 * sum(us for name, (_, us) in by_name.items()
                        if "substep_kernel" in name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
@@ -900,10 +946,122 @@ def rl_profile(env, model, state, gen):
                substep_device_ms=k3_ms,
                substep_share_of_device=k3_ms / busy_ms if busy_ms else 0.0,
                step_ms_events=step_ms, contact_forces_ms=cf_ms,
-               contact_forces_share=cf_ms / step_ms,
+               contact_calls_per_step=contact_calls,
+               contact_forces_share=contact_calls * cf_ms / step_ms,
+               aten_ops_step=step_ops, aten_ops_contact=cf_ops,
+               contact_aten_op_share=contact_calls * cf_ops / step_ops,
                top=[[name[:60], n, 1e-3 * us] for name, (n, us) in top])
-    print("[profile rl] " + json.dumps(rec))
+    print(f"[profile {label}] " + json.dumps(rec))
     return rec
+
+
+def train_phase(dev, phase):
+    """The training main path as a user runs it: ``cli train`` on the card
+    with a config that takes the repo's YAML and points ``env.urdf_path``
+    at the test hopper (``hopper_trajectory`` at B=4096), its runner built
+    by ``task_registry.make_alg_runner`` and trained by
+    ``OnPolicyRunner.learn``; the substep count is zeroed just before
+    ``learn`` and read just after. Then the checkpoint round trip through
+    ``make_alg_runner(resume=True)``, and one more iteration as
+    ``rollout`` / ``ppo_update`` between CUDA events (not counted)."""
+    import shutil
+
+    import torch
+
+    from legged_gym_dev_tpu_torch import cli
+    from legged_gym_dev_tpu_torch.envs import task_registry
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+    from legged_gym_dev_tpu_torch.rl.ppo import ppo_update, rollout
+    from legged_gym_dev_tpu_torch.rl.ppo_recurrent import (
+        ppo_update_recurrent,
+        rollout_recurrent,
+    )
+
+    label = "train rnn" if phase == "train_rnn" else "train"
+    iters = TRAIN_ITERS[phase]
+    log_root = ROOT / "build" / f"chip_smoke_{phase}"
+    shutil.rmtree(log_root, ignore_errors=True)
+    log_root.mkdir(parents=True)
+    urdf = log_root / "hopper.urdf"
+    urdf.write_text(robot_cases().HOPPER_URDF)
+    cfg_path = log_root / "config.yaml"
+    cfg_path.write_text(
+        f"defaults:\n  - {ROOT / TRAIN_CONFIGS[phase]}\n  - _self_\n"
+        f"env:\n  urdf_path: {urdf}\n")
+    args = cli.build_parser().parse_args([
+        "train", "--config", str(cfg_path), "--log-root", str(log_root),
+        "--max-iterations", str(iters)])
+    runner, n_iter = cli.make_runner(args)
+    env, train_cfg = runner.env, runner.cfg
+    task = Path(runner.log_dir).parent.name
+    check(n_iter == iters and env.device.type == "cuda",
+          f"{label}: cli gave {n_iter} iterations on {env.device}")
+    check(env.num_envs == B_RL and env.num_obs == 38,
+          f"{label}: env B={env.num_envs} obs={env.num_obs}")
+    check(env.curriculum is not None and env.curriculum.num_stages == 8,
+          f"{label}: not the 8-stage curriculum")
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    hist = runner.learn(n_iter)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.launches()["substep"]
+    T, dec = train_cfg.num_steps, env.sim.decimation
+    keys = ("mean_reward", "loss", "policy_loss", "value_loss", "kl", "lr")
+    per_iter = [{k: h[k] for k in keys} for h in hist]
+    for i, h in enumerate(per_iter):
+        for k, v in h.items():
+            check(bool(np.isfinite(v)), f"{label} it {i}: {k} = {v}")
+        # lr is a float32 tensor clipped to the float32 bounds
+        check(np.float32(train_cfg.min_lr) <= h["lr"]
+              <= np.float32(train_cfg.max_lr),
+              f"{label} it {i}: lr {h['lr']} out of bounds")
+    check(launches == iters * T * dec,
+          f"{label}: substep launches {launches} != {iters * T * dec}")
+
+    # checkpoint round trip: the run's latest, resumed by the registry
+    obs = torch.randn(64, env.num_obs, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    want = runner.get_inference_policy()(obs)
+    fresh = task_registry.make_alg_runner(
+        env, task, log_root=str(log_root), run_name="reload", seed=1,
+        resume=True, train_cfg=train_cfg)
+    got = fresh.get_inference_policy()(obs)
+    check(torch.equal(got, want), f"{label}: checkpoint round trip differs")
+    del fresh
+
+    # one more iteration, split into rollout and update by CUDA events
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ts, state = runner.train_state, runner.env_state
+    ev[0].record()
+    if runner.recurrent:
+        state, carry, batch, _ = rollout_recurrent(
+            env, runner.model, state, runner.carry, train_cfg, ts.gen)
+        ev[1].record()
+        ppo_update_recurrent(runner.model, ts, batch, train_cfg)
+    else:
+        state, batch, _ = rollout(env, runner.model, state, train_cfg,
+                                  ts.gen)
+        ev[1].record()
+        ppo_update(runner.model, ts, batch, train_cfg)
+    ev[2].record()
+    torch.cuda.synchronize()
+    rollout_s = 1e-3 * ev[0].elapsed_time(ev[1])
+    update_s = 1e-3 * ev[1].elapsed_time(ev[2])
+    steps = train_cfg.num_learning_epochs * train_cfg.num_mini_batches
+    rec = dict(
+        task=task, config=TRAIN_CONFIGS[phase], batch=B_RL, iterations=iters,
+        policy=type(runner.model).__name__, learn_wall_s=wall,
+        s_per_iteration=wall / iters,
+        learn_env_steps_per_s=iters * T * B_RL / wall,
+        split_rollout_s=rollout_s, split_update_s=update_s,
+        update_ms_per_optimizer_step=1e3 * update_s / steps,
+        env_ms_per_step=1e3 * rollout_s / T,
+        substep_launches=launches, checkpoint_round_trip="bit-identical",
+        iterations_metrics=per_iter)
+    print(f"[{label}] " + json.dumps(rec))
+    return rec, (env, runner.model, state)
 
 
 def main(argv=None):
@@ -953,7 +1111,7 @@ def main(argv=None):
     with fp32_matmul():
         krec = kernel_phase(dev) if "kernels" in phases else {}
     if "substep" in phases:
-        krec["substep"] = substep_phase(dev)
+        krec["substep"], krec["substep_nj4"] = substep_phase(dev)
     btk.reset_launches()
     if "l1" in phases:
         solve_mode("l1", B_L1, dev)
@@ -971,23 +1129,41 @@ def main(argv=None):
         rl_state = rl_rollout(dev)          # zeroes and reads its count
         main_launches["substep"] = rl_state[-1]["substep_launches"]
         check(main_launches["substep"] > 0, "rl path: no substep launch")
+    main_launches["substep_nj4"] = 0
+    for phase in ("train", "train_rnn"):
+        if phase in phases:
+            rec, trained = train_phase(dev, phase)
+            main_launches["substep_nj4"] += rec["substep_launches"]
+            if phase == "train":
+                hopper = trained
     print(f"[launches] main path: {json.dumps(main_launches)}")
     if "ref" in phases:
         reference_check(dev)
     if "profile" in phases:
         profile_window(dev, krec)
     if "rl" in phases:
-        rl_profile(*rl_state[:4])
+        env, model, state = rl_state[:3]
+        sim = env._dr_sim(state)
+        step_profile("rl", env, model, state,
+                     lambda: env._contact_forces(state.robot, sim), 1)
+    if "train" in phases:
+        env, model, state = hopper
+        # the controller's gating in each substep, and the termination
+        step_profile("train", env, model, state,
+                     lambda: env._sphere_forces(state.robot),
+                     env.sim.decimation + 1)
 
     if krec:
         kernels = []
-        for name in ("bt_solve", "bt_factor", "bt_msolve", "substep"):
+        for name in ("bt_solve", "bt_factor", "bt_msolve", "substep",
+                     "substep_nj4"):
             if name not in krec:
                 continue
             r = krec[name]
+            base = name.split("_nj")[0]
             kernels.append({
-                "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name],
+                "name": name, "route": "cuda", "source": SOURCES[base],
+                "replaces": REPLACES[base],
                 "launches": main_launches.get(name, 0),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -1,7 +1,7 @@
 """Quaternion / SO(3) / angle math as batched PyTorch functions.
 
 Counterpart of ``legged_gym_dev_tpu/core/maths.py``; only what the RL
-rollout path uses is ported. Quaternions are ``(x, y, z, w)``
+rollout and the hopper tasks use is ported. Quaternions are ``(x, y, z, w)``
 (scalar-last), as in Isaac Gym and the JAX package. Every function is
 batched over leading axes.
 """
@@ -24,6 +24,17 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
                            min=_EPS)
 
 
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate of an (x,y,z,w) quaternion."""
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def quat_inverse(q: torch.Tensor) -> torch.Tensor:
+    """Inverse of an (x,y,z,w) quaternion (conjugate / squared norm)."""
+    return quat_conjugate(q) / torch.clamp(
+        torch.sum(q * q, dim=-1, keepdim=True), min=_EPS)
+
+
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamilton product of (x,y,z,w) quaternions."""
     ax, ay, az, aw = a.unbind(-1)
@@ -43,12 +54,24 @@ def quat_apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + w * t + torch.linalg.cross(u, t, dim=-1)
 
 
+def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by the inverse of unit quaternion q."""
+    return quat_apply(quat_conjugate(q), v)
+
+
 def quat_to_yaw(q: torch.Tensor) -> torch.Tensor:
     """Yaw (z euler) of an (x,y,z,w) quaternion."""
     x, y, z, w = q.unbind(-1)
     siny_cosp = 2.0 * (w * z + x * y)
     cosy_cosp = 1.0 - 2.0 * (y * y + z * z)
     return torch.atan2(siny_cosp, cosy_cosp)
+
+
+def yaw_to_quat(yaw: torch.Tensor) -> torch.Tensor:
+    """(x,y,z,w) quaternion for a pure-yaw rotation."""
+    zeros = torch.zeros_like(yaw)
+    return torch.stack([zeros, zeros, torch.sin(0.5 * yaw),
+                        torch.cos(0.5 * yaw)], dim=-1)
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
@@ -64,6 +87,23 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def so3_log(q: torch.Tensor) -> torch.Tensor:
+    """Log map of an (x,y,z,w) unit quaternion -> axis-angle vector in R^3
+    (the short geodesic: w >= 0). Below ``sin_half < 1e-6`` the scale
+    angle / sin(angle / 2) takes its series 2 + (2/3) half_angle^2; the
+    other branch divides by a denominator made safe there, so neither
+    branch sees a NaN."""
+    q = quat_normalize(q)
+    q = torch.where(q[..., 3:4] < 0.0, -q, q)
+    v = q[..., :3]
+    sin_half = torch.linalg.vector_norm(v, dim=-1)
+    half_angle = torch.atan2(sin_half, q[..., 3])
+    small = sin_half < 1e-6
+    scale = torch.where(small, 2.0 + (2.0 / 3.0) * half_angle ** 2,
+                        2.0 * half_angle / torch.where(small, 1.0, sin_half))
+    return v * scale[..., None]
 
 
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,17 @@
 """Preset task factories encoding the reference robot configurations.
 
 Counterpart of ``legged_gym_dev_tpu/envs/presets.py`` for the legged
-velocity and trajectory tasks: ``make_velocity_env``,
-``make_trajectory_env`` and the ANYmal-C trajectory preset, with the same
-numbers. The hopper, ROM-tracking, Cassie, A1 and rough-terrain presets are
-not ported yet.
+velocity and trajectory tasks (``make_velocity_env``,
+``make_trajectory_env``, the ANYmal-C trajectory preset) and the hopper
+tasks (``make_hopper_trajectory_env``, ``make_hopper_velocity_env``), with
+the same numbers. The ROM-tracking, Cassie, A1 and rough-terrain presets
+are not ported yet.
 
 The JAX package loads its robots from URDF files that are not in this
 repository; every factory here takes the URDF (a path or a string) from
-its caller instead.
+its caller. The hopper factories default, as the JAX package's do, to the
+reference project's hopper URDF, ``HOPPER_URDF``, and raise
+``FileNotFoundError`` where it is absent.
 """
 from __future__ import annotations
 
@@ -17,14 +20,20 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.rom import make_rom
+from ..controllers import RaibertHeuristic
+from ..core.rom import SingleInt2D, make_rom
 from ..rl.ppo import PPOConfig
 from ..sim.contact import ContactParams
 from ..sim.dynamics import RobotModel
 from ..sim.robot_sim import RobotSim
 from ..sim.urdf import parse_urdf
 from ..trajgen.generator import TrajectoryGenerator
-from ..trajgen.samplers import UniformSampleHoldDT, UniformWeightSampler, f32
+from ..trajgen.samplers import (
+    UniformSampleHoldDT,
+    UniformWeightSampler,
+    UniformWeightSamplerNoRamp,
+    f32,
+)
 from ..utils.runtime import resolve_device
 from .registry import task_registry
 
@@ -260,5 +269,158 @@ def make_anymal_c_trajectory_env(urdf_path: str, **kw):
     return make_trajectory_env(urdf_path, **kw)
 
 
+# The reference project's hopper URDF (relative to its root); not in this
+# repository.
+HOPPER_URDF = "resources/robots/hopper/urdf/hopper.urdf"
+
+# Rows map body-frame wheel torques to the three wheel actuators.
+HOPPER_ROT_ACTUATOR = [
+    [-0.8165, 0.2511, 0.2511],
+    [-0.0, -0.7643, 0.7643],
+    [-0.5773, -0.5939, -0.5939],
+]
+
+# configs/rl/hopper_single_int.yaml reward scales
+HOPPER_REWARD_SCALES = (
+    ("termination", -500.0),
+    ("tracking_rom", 6.0),
+    ("ang_vel_xy", -0.01),
+    ("orientation", -80.0),
+    ("torques", -0.000001),
+    ("dof_acc", -2.5e-8),
+    ("unit_quat", -0.01),
+    ("collision", -1.0),
+    ("action_rate", -0.01),
+    ("differential_error", 10.0),
+    ("raibert", -0.1),
+)
+
+
+def _hopper_sim(urdf_path, dev):
+    """The hopper's sim: dt 2.5 ms, decimation 8 (50 Hz policy), stiff
+    compliant contact; its foot spring is the controller's."""
+    return RobotSim.create(
+        RobotModel.from_spec(parse_urdf(urdf_path)),
+        contact=ContactParams.create(stiffness=16000.0, damping=80.0,
+                                     friction=1.0, slip_vel=0.05,
+                                     device=dev),
+        dt=0.0025, decimation=8, device=dev)
+
+
+def _hopper_controller(dev, p_gains, d_gains, spring_stiffness,
+                       spring_damping, foot_pos_des):
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    return dict(
+        p_gains=t(p_gains), d_gains=t(d_gains),
+        kd_spindown=t([0.1, 0.1, 0.1]),
+        spring_stiffness=f32(spring_stiffness),
+        spring_damping=f32(spring_damping), spring_setpoint=0.0,
+        foot_pos_des=f32(foot_pos_des),
+        rot_actuator=t(HOPPER_ROT_ACTUATOR),
+        torque_limits=t([25000.0, 2.1, 2.1, 2.1]),
+        wheel_speed_limit=600.0, ts_ratio=6.0, tracking_sigma=0.25)
+
+
+def _hopper_obs_vectors(mid_scales, dev):
+    """(obs_scales, noise_vec): z, quat, lin vel, ang vel, wheel vels, the
+    task's block (scales ``mid_scales``, no noise), action quat."""
+    n = len(mid_scales)
+    scales = np.concatenate([[1.0], np.ones(4), 0.5 * np.ones(3),
+                             0.25 * np.ones(3), 0.01 * np.ones(3),
+                             mid_scales, np.ones(4)])
+    noise = np.concatenate([[0.02], 0.05 * np.ones(4), 0.1 * 0.5 * np.ones(3),
+                            0.2 * 0.25 * np.ones(3),
+                            1.5 * 0.01 * np.ones(3), np.zeros(n),
+                            np.zeros(4)])
+    return tuple(torch.as_tensor(x.astype(np.float32), device=dev)
+                 for x in (scales, noise))
+
+
+def make_hopper_trajectory_env(
+        num_envs: int = 4096, vel_max: float = 0.2, rom_dt: float = 0.1,
+        n_traj: int = 10, episode_length_s: float = 20.0,
+        add_noise: bool = True, domain_rand: bool = True,
+        push_robots: bool = True,
+        max_push_vel=(0.25, 0.25, 0.25, 0.75, 0.75, 0.75),
+        time_between_pushes=(0.5, 10.0), urdf_path: str = HOPPER_URDF,
+        reward_scales=HOPPER_REWARD_SCALES, curriculum=None, device=None):
+    """Hopper tracking a SingleInt2D ROM.
+
+    ``curriculum``: None (off), "single_int" (the 8-stage schedule) or
+    "default" (the 3-stage tables). Pushes SET the 6-dim base velocity on
+    per-env timers in ``time_between_pushes`` seconds. Mode weights come
+    from the sampler without the ramp mode. (The JAX preset's
+    ``weight_sampler`` names and its ``push_interval_s`` alias are not
+    ported.) ``device=None`` means the CUDA card."""
+    from .hopper_trajectory import CurriculumTables, HopperTrajectoryEnv
+
+    dev = resolve_device(device)
+    rom = SingleInt2D.create(rom_dt, [-10.0, -10.0], [10.0, 10.0],
+                             [-vel_max, -vel_max], [vel_max, vel_max],
+                             device=dev)
+    gen = TrajectoryGenerator.create(
+        rom, UniformSampleHoldDT.create(2.0, 6.0),
+        UniformWeightSamplerNoRamp(), dt_loop=0.02,
+        N=n_traj, dN=1, freq_low=0.01, freq_high=2.0, prob_stationary=0.01)
+    obs_scales, noise_vec = _hopper_obs_vectors(np.ones(2 * n_traj), dev)
+    tables = {
+        None: None,
+        "default": CurriculumTables.default().replace(enabled=True),
+        "single_int": CurriculumTables.hopper_single_int(),
+    }[curriculum]
+    return HopperTrajectoryEnv(
+        sim=_hopper_sim(urdf_path, dev), traj_gen=gen, curriculum=tables,
+        **_hopper_controller(dev, [400.0, 15.0, 15.0, 15.0],
+                             [40.0, 3.0, 3.0, 3.0], 11732.0, 50.0, 0.03),
+        obs_scales=obs_scales, noise_vec=noise_vec,
+        reward_weighting=torch.ones(2, device=dev),
+        raibert=RaibertHeuristic.create(-0.3, -0.9, 0.0, 0.5, 1.0, 0.2),
+        reward_scales=tuple(reward_scales), add_noise=add_noise,
+        domain_rand=domain_rand, push_robots=push_robots,
+        max_push_vel=tuple(max_push_vel),
+        time_between_pushes=tuple(time_between_pushes),
+        episode_length_s=episode_length_s, num_envs=num_envs)
+
+
+def make_hopper_velocity_env(num_envs: int = 4096, add_noise: bool = True,
+                             domain_rand: bool = True,
+                             episode_length_s: float = 20.0,
+                             urdf_path: str = HOPPER_URDF,
+                             reward_scales=None, device=None):
+    """Velocity-command hopper: the trajectory hopper's physics with
+    commands in place of the ROM window (spring 7000/4, foot PD 900/60,
+    wheels 15/3, foot setpoint 0.021). ``device=None`` means the CUDA
+    card."""
+    from .hopper_velocity import (
+        HOPPER_VELOCITY_REWARD_SCALES,
+        HopperVelocityEnv,
+    )
+
+    dev = resolve_device(device)
+    obs_scales, noise_vec = _hopper_obs_vectors([0.5, 0.5, 0.25], dev)
+    return HopperVelocityEnv(
+        sim=_hopper_sim(urdf_path, dev),
+        **_hopper_controller(dev, [900.0, 15.0, 15.0, 15.0],
+                             [60.0, 3.0, 3.0, 3.0], 7000.0, 4.0, 0.021),
+        obs_scales=obs_scales, noise_vec=noise_vec,
+        command_ranges=torch.tensor([[-0.35, 0.35], [-0.35, 0.35],
+                                     [-1.0, 1.0]], device=dev),
+        max_push_vel=torch.tensor([0.25, 0.25, 0.1, 0.75, 0.75, 0.75],
+                                  device=dev),
+        reward_scales=(tuple(reward_scales) if reward_scales is not None
+                       else HOPPER_VELOCITY_REWARD_SCALES),
+        add_noise=add_noise, domain_rand=domain_rand,
+        episode_length_s=episode_length_s, num_envs=num_envs)
+
+
+# the reference PPO block (the hopper's [128, 64, 32] nets are the policy's)
+HOPPER_PPO = PPOConfig()
+
 task_registry.register("anymal_c_trajectory", make_anymal_c_trajectory_env,
                        PPOConfig())
+task_registry.register("hopper_trajectory", make_hopper_trajectory_env,
+                       HOPPER_PPO)
+task_registry.register("hopper_velocity", make_hopper_velocity_env,
+                       HOPPER_PPO)

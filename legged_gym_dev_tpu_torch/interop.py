@@ -53,34 +53,95 @@ def trajopt_params_from_numpy(rom_name: str, dt, z_min, z_max, v_min, v_max,
         tube_params=tube_params, batch=batch, device=dev)
 
 
+def _dense_layers(body):
+    """A flax MLP body's (kernel, bias) pairs in layer order."""
+    names = sorted(body, key=lambda n: int(n.split("_")[-1]))
+    return [(np.array(body[n]["kernel"], np.float32),
+             np.array(body[n]["bias"], np.float32)) for n in names]
+
+
+def state_dict_from_flax(flax_tree) -> dict:
+    """A flax ``ActorCritic`` / ``ActorCriticRecurrent`` tree (parameters,
+    or an Adam moment of the same structure; numpy leaves, with or without
+    the outer ``"params"`` key) as the port model's ``state_dict`` entries
+    (numpy). ``Dense`` kernels (in, out) become ``Linear`` weights
+    (out, in). flax's ``OptimizedLSTMCell`` holds per-gate kernels
+    ``ii``/``if``/``ig``/``io`` (input, no bias) and ``hi``/``hf``/``hg``/
+    ``ho`` (hidden, with bias); the port's ``LSTMCell`` stacks them in gate
+    order i, f, g, o: ``weight_ih`` (4H, in), ``weight_hh`` (4H, H),
+    ``bias_hh`` (4H,). (``torch.nn.LSTMCell`` would need a second bias,
+    ``b_ih = 0``, and returns (h, c) where flax's carry is (c, h).)"""
+    p = flax_tree.get("params", flax_tree)
+    out = {"log_std": np.array(p["log_std"], np.float32)}
+    for net in ("actor", "critic"):
+        for i, (k, b) in enumerate(_dense_layers(p[net])):
+            out[f"{net}.{2 * i}.weight"] = np.ascontiguousarray(k.T)
+            out[f"{net}.{2 * i}.bias"] = b
+    if "lstm" in p:
+        cell = p["lstm"]
+
+        def stack(prefix):
+            return np.ascontiguousarray(np.concatenate(
+                [np.array(cell[prefix + g]["kernel"], np.float32)
+                 for g in "ifgo"], axis=1).T)
+
+        out["lstm.weight_ih"] = stack("i")
+        out["lstm.weight_hh"] = stack("h")
+        out["lstm.bias_hh"] = np.concatenate(
+            [np.array(cell["h" + g]["bias"], np.float32) for g in "ifgo"])
+    return out
+
+
 def actor_critic_from_numpy(flax_params, device=None):
-    """The JAX package's ``ActorCritic`` parameters (the flax tree as
-    numpy arrays, with or without the outer ``"params"`` key) as the
-    port's ``ActorCritic``. flax ``Dense`` kernels are ``(in, out)``;
-    ``torch.nn.Linear`` weights are their transpose."""
-    from .rl.networks import ActorCritic
+    """The JAX package's ``ActorCritic`` or ``ActorCriticRecurrent``
+    parameters (the flax tree as numpy arrays) as the port's model of the
+    same dims (``state_dict_from_flax``)."""
+    from .rl.networks import ActorCritic, ActorCriticRecurrent
 
     dev = resolve_device(device)
     p = flax_params.get("params", flax_params)
-
-    def dense(body):
-        names = sorted(body, key=lambda n: int(n.split("_")[-1]))
-        return [(np.array(body[n]["kernel"], np.float32),
-                 np.array(body[n]["bias"], np.float32)) for n in names]
-
-    actor, critic = dense(p["actor"]), dense(p["critic"])
-    model = ActorCritic(actor[0][0].shape[0], actor[-1][0].shape[1],
-                        [k.shape[1] for k, _ in actor[:-1]],
-                        [k.shape[1] for k, _ in critic[:-1]])
-    with torch.no_grad():
-        for seq, layers in ((model.actor, actor), (model.critic, critic)):
-            linears = [m for m in seq if isinstance(m, torch.nn.Linear)]
-            for lin, (k, b) in zip(linears, layers):
-                lin.weight.copy_(torch.as_tensor(k.T.copy()))
-                lin.bias.copy_(torch.as_tensor(b))
-        model.log_std.copy_(torch.as_tensor(
-            np.array(p["log_std"], np.float32)))
+    actor, critic = _dense_layers(p["actor"]), _dense_layers(p["critic"])
+    dims = dict(actor_hidden_dims=[k.shape[1] for k, _ in actor[:-1]],
+                critic_hidden_dims=[k.shape[1] for k, _ in critic[:-1]])
+    if "lstm" in p:
+        hidden = np.shape(p["lstm"]["hi"]["kernel"])[0]
+        model = ActorCriticRecurrent(
+            np.shape(p["lstm"]["ii"]["kernel"])[0], actor[-1][0].shape[1],
+            rnn_hidden_size=hidden, **dims)
+    else:
+        model = ActorCritic(actor[0][0].shape[0], actor[-1][0].shape[1],
+                            **dims)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in
+                           state_dict_from_flax(p).items()})
     return model.to(dev)
+
+
+
+def train_state_from_numpy(flax_params, mu, nu, count, lr, generator=None,
+                           device=None):
+    """The JAX package's ``TrainState`` parts (flax parameters, the Adam
+    moments ``mu`` / ``nu`` of optax's state, its step ``count`` and the
+    learning rate, all numpy) as ``(model, TrainState)`` of the port. The
+    JAX key has no counterpart: the state draws from ``generator`` (a new
+    one seeded 0 on the device by default)."""
+    from .rl.ppo import AdamState, TrainState
+
+    dev = resolve_device(device)
+    model = actor_critic_from_numpy(flax_params, dev)
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    names = [n for n, _ in model.named_parameters()]
+    moments = [state_dict_from_flax(m) for m in (mu, nu)]
+    mu_t, nu_t = ([torch.as_tensor(m[n], device=dev) for n in names]
+                  for m in moments)
+    return model, TrainState(
+        params=list(model.parameters()),
+        opt_state=AdamState(count=torch.tensor(int(count), dtype=torch.int32,
+                                                device=dev),
+                            mu=mu_t, nu=nu_t),
+        lr=torch.tensor(float(np.float32(lr)), device=dev),
+        gen=generator)
 
 
 def env_state_from_numpy(jax_state, env, generator=None):
@@ -131,3 +192,42 @@ def traj_gen_state_from_numpy(jax_tg, generator):
                   "ramp_v_end", "sin_mag", "sin_freq", "sin_off",
                   "sin_mean", "trajectory", "v_trajectory", "v",
                   "stationary")})
+
+
+def hopper_env_state_from_numpy(jax_state, env, generator=None):
+    """A JAX ``HopperEnvState`` or ``HopperVelEnvState`` with numpy leaves
+    as the port's state of the same task on ``env``'s device (``common_step``
+    and ``curriculum_stage`` as ints), drawing from ``generator`` (a new one
+    seeded 0 by default); the JAX key is dropped."""
+    from .envs.hopper_trajectory import HopperDR, HopperEnvState
+    from .envs.hopper_velocity import HopperVelEnvState
+    from .sim.dynamics import RobotState
+
+    dev = env.device
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=dev)
+
+    r, d = jax_state.robot, jax_state.dr
+    common = dict(
+        gen=generator,
+        robot=RobotState(*(t(getattr(r, k)) for k in
+                           ("base_pos", "base_quat", "q", "v"))),
+        episode_sums={k: t(v) for k, v in jax_state.episode_sums.items()},
+        dr=HopperDR(**{f: t(getattr(d, f)) for f in (
+            "spring_k", "spring_d", "spring_set", "p_gain", "d_gain",
+            "torque", "speed", "ts_slope", "base_mass")}),
+        common_step=int(jax_state.common_step),
+        **{f: t(getattr(jax_state, f)) for f in (
+            "actions", "last_actions", "last_dof_vel", "torques",
+            "time_until_next_push", "episode_step")})
+    if hasattr(jax_state, "commands"):
+        return HopperVelEnvState(commands=t(jax_state.commands), **common)
+    return HopperEnvState(
+        traj_gen=traj_gen_state_from_numpy(jax_state.traj_gen, generator),
+        curriculum_stage=int(jax_state.curriculum_stage),
+        trajectory=t(jax_state.trajectory),
+        prev_error=t(jax_state.prev_error), **common)

@@ -1,5 +1,15 @@
-from .networks import ActorCritic
-from .ppo import PPOConfig, RolloutBatch, compute_gae, rollout
+from .networks import ActorCritic, ActorCriticRecurrent
+from .ppo import (
+    PPOConfig,
+    RolloutBatch,
+    TrainState,
+    compute_gae,
+    init_train_state,
+    make_learn_iteration,
+    ppo_update,
+    rollout,
+)
 
-__all__ = ["ActorCritic", "PPOConfig", "RolloutBatch", "compute_gae",
-           "rollout"]
+__all__ = ["ActorCritic", "ActorCriticRecurrent", "PPOConfig",
+           "RolloutBatch", "TrainState", "compute_gae", "init_train_state",
+           "make_learn_iteration", "ppo_update", "rollout"]

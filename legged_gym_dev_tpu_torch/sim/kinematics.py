@@ -368,20 +368,38 @@ def _bcast(cols, B, like):
     return torch.stack(arrs, dim=-1)
 
 
+def contact_points(model: RobotModel, state: RobotState):
+    """(pos (B,nc,3), vel (B,nc,3)) of the contact spheres: the part of
+    ``contact_kinematics`` that callers who discard the Jacobian need (XLA
+    drops the unused Jacobian from the JAX package's traced steps; eager
+    PyTorch would build it)."""
+    pos_a, vel_a, _ = _contact_points(model, state)
+    return pos_a, vel_a
+
+
+def _contact_points(model, state):
+    B = state.base_pos.shape[0]
+    ref = state.base_pos
+    p0, quat, q, v = _state_lm(state)
+    chain = fk_chain_lm(model, p0, quat, q, v)
+    pos, vel = _contact_points_lm(model, chain)
+    if not pos:
+        z = ref.new_zeros((B, 0, 3))
+        return z, z, (chain, pos)
+    pos_a = torch.stack([_bcast(p, B, ref) for p in pos], dim=1)
+    vel_a = torch.stack([_bcast(vl, B, ref) for vl in vel], dim=1)
+    return pos_a, vel_a, (chain, pos)
+
+
 def contact_kinematics(model: RobotModel, state: RobotState):
     """(pos (B,nc,3), vel (B,nc,3), Jc (B,nc,3,nv))."""
     B = state.base_pos.shape[0]
     nv = 6 + model.nj
     ref = state.base_pos
-    p0, quat, q, v = _state_lm(state)
-    chain = fk_chain_lm(model, p0, quat, q, v)
-    pos, vel = _contact_points_lm(model, chain)
+    pos_a, vel_a, (chain, pos) = _contact_points(model, state)
     nc = len(pos)
     if not nc:
-        z = ref.new_zeros((B, 0, 3))
-        return z, z, ref.new_zeros((B, 0, 3, nv))
-    pos_a = torch.stack([_bcast(p, B, ref) for p in pos], dim=1)
-    vel_a = torch.stack([_bcast(vl, B, ref) for vl in vel], dim=1)
+        return pos_a, vel_a, ref.new_zeros((B, 0, 3, nv))
     Js = []
     for c in range(nc):
         cols = _point_jac_cols(model, chain, model.contact_body[c], pos[c])

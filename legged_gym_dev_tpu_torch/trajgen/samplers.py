@@ -49,3 +49,7 @@ class UniformWeightSampler:
                              device=device)[None, :]
         return w / torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-8)
 
+
+def UniformWeightSamplerNoRamp() -> UniformWeightSampler:
+    """The hopper trajectory task's mode weights (no ramp mode)."""
+    return UniformWeightSampler(mask=(1.0, 0.0, 1.0, 1.0))

@@ -268,7 +268,7 @@ def robot_cases():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("robot", ["quadruped", "hopper4"])
+@pytest.mark.parametrize("robot", ["quadruped", "hopper4", "hopper"])
 @pytest.mark.parametrize("B,dr", [(4096, True), (1000, False), (5, True)])
 def test_substep_matches_plain_on_card(card, robot, B, dr):
     """K3 against its plain version on both test robots, with and without
@@ -290,7 +290,7 @@ def test_substep_matches_plain_on_card(card, robot, B, dr):
 @pytest.mark.parametrize("payload", [False, True])
 @pytest.mark.parametrize("form", ["scalar", "per_sphere", "B1", "B11",
                                   "Bnc"])
-@pytest.mark.parametrize("robot", ["quadruped", "hopper4"])
+@pytest.mark.parametrize("robot", ["quadruped", "hopper4", "hopper"])
 def test_substep_views_and_dr_forms_on_card(card, robot, form, payload):
     """K3 reading its inputs in place: the state handed as strided views
     (rows of one (n, B) tensor, a quaternion broadcast over the envs) and

@@ -138,3 +138,34 @@ def test_rl_entry_points_raise_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ContactParams.create()
     assert RobotSim.create(model, device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_card(monkeypatch, tmp_path):
+    """The training slice's entry points (the hopper presets, the
+    registry, ``cli train`` without ``--cpu``) raise on a machine with no
+    card; ``--cpu`` and ``device="cpu"`` are the CPU's way in."""
+    from legged_gym_dev_tpu_torch import cli
+    from legged_gym_dev_tpu_torch.envs import registry
+    from legged_gym_dev_tpu_torch.envs.presets import (
+        make_hopper_trajectory_env,
+        make_hopper_velocity_env,
+    )
+    from tests.torch_robot_cases import HOPPER_URDF
+
+    _no_card(monkeypatch)
+    for make in (make_hopper_trajectory_env, make_hopper_velocity_env):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(urdf_path=HOPPER_URDF, num_envs=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.make_env("hopper_trajectory", urdf_path=HOPPER_URDF,
+                          num_envs=2)
+    urdf = tmp_path / "hopper.urdf"
+    urdf.write_text(HOPPER_URDF)
+    cfg = tmp_path / "c.yaml"
+    cfg.write_text(f"env:\n  num_envs: 2\n  urdf_path: {urdf}\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--config", str(cfg), "--log-root",
+                  str(tmp_path / "logs"), "--max-iterations", "1"])
+    env = make_hopper_trajectory_env(urdf_path=HOPPER_URDF, num_envs=2,
+                                     device="cpu")
+    assert env.device.type == "cpu"

@@ -12,6 +12,12 @@ without JAX.
 - ``HOPPER4_URDF``: a 4-joint robot with a prismatic foot (joint springs
   act on it) and three revolute flywheels whose joint frames are rotated,
   covering the kernel's prismatic and spring rows.
+- ``HOPPER_URDF``: the hopper of the hopper tasks: a torso, a prismatic
+  foot (the controller's spring acts on it) and three rotated revolute
+  reaction wheels, each link with one collision sphere, in the order the
+  tasks index them (torso 0, foot 1, wheels 2-4; nj=4, nc=5). Effort
+  limits are the task's torque limits (25000 N foot, 2.1 Nm wheels), the
+  wheels' speed limit 600 rad/s; masses and sizes are this file's.
 """
 import numpy as np
 
@@ -118,6 +124,32 @@ HOPPER4_URDF = "".join([
     "</robot>",
 ])
 
+HOPPER_URDF = "".join([
+    '<robot name="hopper">',
+    '<link name="torso">' + _inertial(4.0, (0.0, 0.0, 0.02), 0.05, 0.05,
+                                      0.035)
+    + _sphere((0.0, 0.0, 0.0), 0.09) + '</link>',
+    '<link name="foot">' + _inertial(0.4, (0.0, 0.0, -0.1), 0.002, 0.002,
+                                     0.0004)
+    + _sphere((0.0, 0.0, -0.18), 0.02) + '</link>',
+    *(f'<link name="wheel{i}">' + _inertial(0.35, (0, 0, 0), 0.0008,
+                                            0.0008, 0.0015)
+      + _sphere((0, 0, 0), 0.06) + '</link>' for i in (1, 2, 3)),
+    _joint("foot_slide", "prismatic", "torso", "foot", (0.0, 0.0, -0.2),
+           axis="0 0 1", lower=-0.1, upper=0.2, effort=25000.0,
+           velocity=20.0),
+    _joint("wheel1_joint", "revolute", "torso", "wheel1", (0.1, 0.0, 0.05),
+           axis="0 0 1", rpy="0 1.5708 0", lower=-1e9, upper=1e9,
+           effort=2.1, velocity=600.0),
+    _joint("wheel2_joint", "revolute", "torso", "wheel2",
+           (-0.05, 0.087, 0.05), axis="0 0 1", rpy="1.5708 0 0.5236",
+           lower=-1e9, upper=1e9, effort=2.1, velocity=600.0),
+    _joint("wheel3_joint", "revolute", "torso", "wheel3",
+           (-0.05, -0.087, 0.05), axis="0 0 1", rpy="-1.5708 0 -0.5236",
+           lower=-1e9, upper=1e9, effort=2.1, velocity=600.0),
+    "</robot>",
+])
+
 # Joint springs of the 4-joint robot (on the prismatic foot only).
 HOPPER4_SPRINGS = dict(stiffness=[3000.0, 0.0, 0.0, 0.0],
                        damping=[30.0, 0.0, 0.0, 0.0],
@@ -141,6 +173,12 @@ ROBOTS = {
                                  friction=1.0, slip_vel=0.05),
                     springs=HOPPER4_SPRINGS, height=0.5,
                     q0=np.zeros(4, np.float32)),
+    # the hopper tasks' sim (no joint springs: the controller's spring)
+    "hopper": dict(urdf=HOPPER_URDF, dt=0.0025, decimation=8,
+                   contact=dict(stiffness=16000.0, damping=80.0,
+                                friction=1.0, slip_vel=0.05),
+                   springs=None, height=0.38,
+                   q0=np.asarray([0.03, 0.0, 0.0, 0.0], np.float32)),
 }
 
 
