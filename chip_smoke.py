@@ -53,7 +53,25 @@ Runs on one CUDA card (an H100 for the recorded numbers):
 10. train_rnn phase: the same for 1 iteration of
    ``hopper_single_int_recurrent.yaml`` (LSTM 256, [256, 128]; 192
    launches);
-11. prints one ``{"kernels": [...]}`` line, then, last,
+11. tube phase (main path of the tube-learning slice), through the port's
+   ``cli collect`` / ``cli train-tube`` on the card: ROM-tracking
+   collection as ``configs/data_generation/default_custom.yaml`` sets it
+   (``rom_tracking``, B=4096, 4 epochs of 8 s, seed 42: 16384 episodes of
+   80 ROM ticks, 2 env steps a tick), the rollout written as ``.tdl``
+   shards and one epoch streamed through ``make_loader`` (the native C++
+   loader), the one-shot tube net of
+   ``configs/tube_learning/tube_learning_oneshot.yaml`` (2x128
+   softplus_b5, H_rev 25, H_fwd 50, vector loss, batch 2048, lr 1e-3)
+   trained for ``TUBE_EPOCHS`` of its 1000 epochs, its split-conformal
+   width scale on the held-out split, and the scaled net through
+   ``solve_tube_fast_batched`` NN_oneshot on the gap batch (B=1024, N=50,
+   H_rev 25; bt_solve, bt_factor and bt_msolve launches zeroed before and
+   read after) with a card-against-CPU check at B=8 (scenarios whose two
+   CPU linsolve routes disagree, a kink of the tube, left out); then the
+   hopper's
+   Raibert collection (``collect_tracking``, B=4096, 2 ROM ticks: substep
+   launches at nj=4 counted);
+12. prints one ``{"kernels": [...]}`` line, then, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -62,7 +80,7 @@ result line. Without a CUDA device it exits non-zero at once.
 Usage: ``python3 chip_smoke.py`` (all phases), or
 ``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
 debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl,
-train, train_rnn).
+train, train_rnn, tube).
 """
 import argparse
 import concurrent.futures
@@ -77,7 +95,7 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl",
-          "train", "train_rnn")
+          "train", "train_rnn", "tube")
 N, H_REV = 50, 10
 B_L1, B_NN = 2048, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -100,6 +118,10 @@ ROOT = Path(__file__).resolve().parent
 TRAIN_ITERS = {"train": 3, "train_rnn": 1}
 TRAIN_CONFIGS = {"train": "configs/rl/hopper_single_int.yaml",
                  "train_rnn": "configs/rl/hopper_single_int_recurrent.yaml"}
+TUBE_COLLECT = "configs/data_generation/default_custom.yaml"
+TUBE_TRAIN = "configs/tube_learning/tube_learning_oneshot.yaml"
+TUBE_EPOCHS = 40     # of the config's 1000
+H_REV_TUBE = 25
 
 
 def ptxas_summary(report):
@@ -439,10 +461,11 @@ def kernel_phase(dev):
 # main path
 # ---------------------------------------------------------------------------
 
-def bench_batch(B, tube, dev, seed=0):
+def bench_batch(B, tube, dev, seed=0, mlp=None, h_rev=H_REV):
     """bench.py's randomised gap batch (numpy draws in bench.py's order)
-    and, for NN_oneshot, the 130->128->128->50 softplus-head tube MLP with
-    Kaiming-uniform weights, the last layer x0.1 and bias -2.5."""
+    and, for NN_oneshot, ``mlp`` or else the 130->128->128->50
+    softplus-head tube MLP with Kaiming-uniform weights, the last layer
+    x0.1 and bias -2.5."""
     from legged_gym_dev_tpu_torch.interop import (
         mlp_from_numpy,
         trajopt_params_from_numpy,
@@ -450,8 +473,8 @@ def bench_batch(B, tube, dev, seed=0):
     from legged_gym_dev_tpu_torch.solver import PROBLEM_DICT
 
     prob = PROBLEM_DICT["gap"]
-    nn = None
-    if tube == "NN_oneshot":
+    nn = mlp
+    if tube == "NN_oneshot" and mlp is None:
         wr = np.random.default_rng(seed + 1000)
         sizes = [H_REV + (H_REV + N) * 2, 128, 128, N]
         ws, bs = [], []
@@ -471,7 +494,7 @@ def bench_batch(B, tube, dev, seed=0):
     return trajopt_params_from_numpy(
         "SingleInt2D", prob["dt"], [-prob["pos_max"]] * 2,
         [prob["pos_max"]] * 2, [-prob["vel_max"]] * 2, [prob["vel_max"]] * 2,
-        N, H_REV, 10 * np.eye(2), 10 * np.eye(2), z0, zf, obs_c, obs_r,
+        N, h_rev, 10 * np.eye(2), 10 * np.eye(2), z0, zf, obs_c, obs_r,
         Qw=(0.1 if tube == "NN_oneshot" else 0.0), w_max=1.0,
         tube_params=nn, device=dev)
 
@@ -1064,6 +1087,269 @@ def train_phase(dev, phase):
     return rec, (env, runner.model, state)
 
 
+# ---------------------------------------------------------------------------
+# tube-learning slice: collect, shards, train, calibrate, plan
+# ---------------------------------------------------------------------------
+
+def tube_collect(cli, work):
+    """``cli collect`` with the data-generation config, on the card."""
+    import torch
+
+    args = cli.build_parser().parse_args([
+        "collect", "--config", str(ROOT / TUBE_COLLECT), "--seed", "42",
+        "--out", str(work / "rollouts.npz")])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = cli.collect_rollouts(args)       # ends in the host transfer
+    wall = time.perf_counter() - t0
+    B, E = args.num_envs, args.epochs
+    T, n = data.v.shape[1], 2
+    steps = 2                              # round(rom dt 0.1 / dt_loop 0.05)
+    check(data.z.shape == (B * E, T + 1, n) and T == 80
+          and data.pz_x.shape == data.z.shape
+          and data.v.shape == (B * E, T, 2) and data.done.shape == (B * E, T),
+          f"tube collect: shapes {data.z.shape} {data.v.shape}")
+    for f in ("z", "v", "pz_x"):
+        check(bool(np.isfinite(getattr(data, f)).all()),
+              f"tube collect: non-finite {f}")
+    err = np.linalg.norm(data.pz_x - data.z, axis=-1)
+    rec = dict(config=TUBE_COLLECT, batch=B, epochs=E, rom_ticks=T,
+               env_steps_per_tick=steps, shapes=dict(
+                   z=data.z.shape, v=data.v.shape, done=data.done.shape),
+               wall_s=wall, env_steps_per_s=B * E * T * steps / wall,
+               rom_ticks_per_s=B * E * T / wall,
+               err_mean=float(err.mean()),
+               err_p90=float(np.quantile(err, 0.9)))
+    print(cli.save_rollouts(args, data))
+    return data, rec
+
+
+def tube_shards(data, work):
+    """The rollout as ``.tdl`` shards, one epoch streamed through
+    ``make_loader`` (which must pick the native loader)."""
+    from legged_gym_dev_tpu_torch.tube.shards import (
+        NativeTubeLoader,
+        make_loader,
+        write_rollout_shards,
+    )
+
+    paths = write_rollout_shards(str(work / "shards"), [data],
+                                 variant="scalar")
+    loader = make_loader(paths, N=3, dN=1)
+    check(isinstance(loader, NativeTubeLoader),
+          f"tube shards: loader is {type(loader).__name__}")
+    t0 = time.perf_counter()
+    rows = sum(x.shape[0] for x, _ in loader.epoch(seed=0, batch=2048,
+                                                    n_threads=2))
+    wall = time.perf_counter() - t0
+    check(rows == loader.num_rows, f"tube shards: {rows} rows streamed of "
+          f"{loader.num_rows}")
+    loader.close()
+    return dict(loader=type(loader).__name__, shards=len(paths), rows=rows,
+                row_dim=loader.input_dim, epoch_s=wall, rows_per_s=rows / wall)
+
+
+def tube_train(cli, work):
+    """``cli train-tube`` with the one-shot config, cut to TUBE_EPOCHS,
+    then the split-conformal width scale on the trainer's held-out
+    split."""
+    from legged_gym_dev_tpu_torch.tube.models import MLP
+    from legged_gym_dev_tpu_torch.tube.train import (
+        conformal_width_scale,
+        train_tube,
+    )
+
+    args = cli.build_parser().parse_args([
+        "train-tube", "--config", str(ROOT / TUBE_TRAIN), "--data",
+        str(work / "rollouts.npz"), "--epochs", str(TUBE_EPOCHS),
+        "--seed", "42"])
+    ds, model, loss_fn, cfg, dev, spec = cli.make_tube_training(args)
+    check(dev.type == "cuda" and ds.input_dim == 175
+          and ds.output_dim == N and spec["H_rev"] == H_REV_TUBE
+          and (cfg.batch_size, cfg.learning_rate) == (2048, 1e-3)
+          and spec["num_units"] == 128 and spec["loss"] == "vector",
+          f"tube train: {spec} {cfg} on {dev}")
+    t0 = time.perf_counter()
+    res = train_tube(ds, model, loss_fn, cfg, device=dev)
+    wall = time.perf_counter() - t0
+    hist = res.history
+    steps = sum(h["steps"] for h in hist)
+    host_s = sum(h["batch_s"] for h in hist)
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), f"tube train: losses {losses}")
+    check(losses[-1] < losses[0], f"tube train: loss did not fall {losses}")
+    final = [h for h in hist if "coverage" in h][-1]
+    _, test_ds = ds.random_split(1.0 - cfg.test_split,
+                                 rng=np.random.default_rng(cfg.seed))
+    best = res.best_model
+    scale = conformal_width_scale(best, test_ds, alpha=spec["alpha"])
+    check(np.isfinite(scale) and scale > 0, f"tube train: scale {scale}")
+    scaled = MLP(list(best.weights), list(best.biases),
+                 activation=best.activation,
+                 final_activation=best.final_activation,
+                 out_scale=best.weights[0].new_tensor(scale))
+    rec = dict(config=TUBE_TRAIN, epochs=TUBE_EPOCHS, of_epochs=1000,
+               episodes=len(ds), optimizer_steps=steps, wall_s=wall,
+               ms_per_step=1e3 * wall / steps,
+               host_batch_ms_per_step=1e3 * host_s / steps,
+               device_step_ms_per_step=1e3 * (wall - host_s) / steps,
+               loss_first=losses[0], loss_last=losses[-1],
+               coverage=final["coverage"],
+               eval_mean_err=final["eval_mean_err"], conformal_scale=scale)
+    return scaled, rec
+
+
+def tube_plan(mlp, dev):
+    """The learned, scaled tube through the NN_oneshot solve at B=1024,
+    N=50, H_rev 25 (launches zeroed before, read after)."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.solver import (
+        ALConfig,
+        solve_tube_fast_batched,
+    )
+
+    kw = dict(tube_kind="NN_oneshot", scaling=0.5, warm_start="interpolate",
+              tube_ws="evaluate")
+    p = bench_batch(B_NN, "NN_oneshot", dev, mlp=mlp, h_rev=H_REV_TUBE)
+    torch.cuda.synchronize()
+    btk.reset_launches()
+    t0 = time.perf_counter()
+    out = solve_tube_fast_batched(
+        p, N, H_REV_TUBE, cfg=ALConfig(nn_basis_refresh=3,
+                                        linsolve="pallas"), device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = btk.launches()
+    w_max = float(p.w_max.max())
+    w, viol = out.w.cpu().numpy(), out.sol.viol.cpu().numpy()
+    rec = dict(batch=B_NN, N=N, H_rev=H_REV_TUBE, wall_s=wall,
+               solves_per_s=B_NN / wall,
+               feasible_frac=float(np.mean(viol < 1e-3)),
+               max_viol=float(viol.max()), w_min=float(w.min()),
+               w_max=float(w.max()), w_mean=float(w.mean()),
+               launches=launches)
+    print("[tube plan] " + json.dumps(rec))
+    check(out.z.shape == (B_NN, N + 1, 2) and out.w.shape == (B_NN, N + 1),
+          f"tube plan: shapes {tuple(out.z.shape)} {tuple(out.w.shape)}")
+    for name, t in (("z", out.z), ("v", out.v), ("w", out.w),
+                    ("viol", out.sol.viol)):
+        check(bool(torch.isfinite(t).all()), f"tube plan: non-finite {name}")
+    check(w.min() >= 0.0 and w.max() <= w_max,
+          f"tube plan: widths in [{w.min()}, {w.max()}], w_max {w_max}")
+    for k in ("bt_solve", "bt_factor", "bt_msolve"):
+        check(launches[k] > 0, f"tube plan: no {k} launch")
+    return rec
+
+
+def tube_reference(mlp, dev, B=8):
+    """The learned tube's plans on the card (kernels) against the CPU
+    (plain versions) on a small bench batch, an 8x6 schedule. Near a kink
+    of the tube fp32 rounding alone moves a plan by 1e-2: a scenario whose
+    two CPU routes (linsolve "pallas", the kernels' plain versions, and
+    "thomas", the block-Thomas) disagree by 2e-3 is rounding-sensitive and
+    left out. Bar: the other scenarios within 2e-3, and at least half the
+    batch compared."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.solver import (
+        ALConfig,
+        solve_tube_fast_batched,
+    )
+
+    kw = dict(tube_kind="NN_oneshot", scaling=0.5, warm_start="interpolate",
+              tube_ws="evaluate")
+
+    def solve(d, linsolve):
+        pb = bench_batch(B, "NN_oneshot", d, seed=2, mlp=mlp,
+                         h_rev=H_REV_TUBE)
+        out = solve_tube_fast_batched(
+            pb, N, H_REV_TUBE, cfg=ALConfig(outer_iters=8, inner_iters=6,
+                                            linsolve=linsolve,
+                                            nn_basis_refresh=3),
+            device=d, **kw)
+        return torch.cat([out.z.reshape(B, -1), out.w], dim=1).cpu()
+
+    card = solve(dev, "pallas")
+    cpu = solve(torch.device("cpu"), "pallas")
+    thomas = solve(torch.device("cpu"), "thomas")
+    d_card = (card - cpu).abs().amax(dim=1).numpy()
+    d_cpu = (thomas - cpu).abs().amax(dim=1).numpy()
+    stable = d_cpu < 2e-3
+    rec = dict(batch=B, compared=int(stable.sum()),
+               max_card_vs_cpu=float(d_card[stable].max())
+               if stable.any() else None,
+               max_card_vs_cpu_all=float(d_card.max()),
+               max_cpu_routes=float(d_cpu.max()))
+    print("[tube ref] " + json.dumps(rec))
+    check(stable.sum() >= B // 2,
+          f"tube ref: only {stable.sum()} of {B} scenarios off a kink")
+    check(bool((d_card[stable] < 2e-3).all()),
+          "tube ref: card and CPU disagree")
+    return rec
+
+
+def tube_hopper(dev):
+    """The hopper's tube data (Raibert heuristic, ``collect_tracking``) at
+    B=4096 for 2 ROM ticks on the test hopper: substep launches at nj=4
+    zeroed before, read after."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.envs.presets import (
+        make_hopper_trajectory_env,
+    )
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+    from legged_gym_dev_tpu_torch.tube.collect import collect_tracking
+
+    work = ROOT / "build" / "chip_smoke_tube"
+    urdf = work / "hopper.urdf"
+    urdf.write_text(robot_cases().HOPPER_URDF)
+    env = make_hopper_trajectory_env(num_envs=B_RL, add_noise=False,
+                                     episode_length_s=8.0,
+                                     urdf_path=str(urdf), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    data = collect_tracking(env, env.raibert, gen, episode_length_s=0.2,
+                            raibert_obs=True)
+    wall = time.perf_counter() - t0
+    launches = sk.launches()["substep"]
+    T, steps = 2, 5
+    check(data.z.shape == (B_RL, T + 1, 2) and np.isfinite(data.pz_x).all(),
+          f"tube hopper: {data.z.shape}")
+    check(launches == T * steps * env.sim.decimation,
+          f"tube hopper: substep launches {launches}")
+    err = np.linalg.norm(data.pz_x - data.z, axis=-1)
+    return dict(batch=B_RL, rom_ticks=T, env_steps_per_tick=steps,
+                wall_s=wall, env_steps_per_s=B_RL * T * steps / wall,
+                done_frac=float(data.done[:, :-1].mean()),
+                err_mean=float(err.mean()), substep_launches=launches)
+
+
+def tube_phase(dev):
+    import shutil
+
+    from legged_gym_dev_tpu_torch import cli
+
+    work = ROOT / "build" / "chip_smoke_tube"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data, rec = tube_collect(cli, work)
+    print("[tube collect] " + json.dumps(rec))
+    rec = tube_shards(data, work)
+    print("[tube shards] " + json.dumps(rec))
+    del data
+    mlp, rec = tube_train(cli, work)
+    print("[tube train] " + json.dumps(rec))
+    plan = tube_plan(mlp, dev)
+    tube_reference(mlp, dev)
+    hopper = tube_hopper(dev)
+    print("[tube hopper] " + json.dumps(hopper))
+    return plan["launches"], hopper["substep_launches"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1136,6 +1422,13 @@ def main(argv=None):
             main_launches["substep_nj4"] += rec["substep_launches"]
             if phase == "train":
                 hopper = trained
+    if "tube" in phases:
+        tube_launches, tube_nj4 = tube_phase(dev)
+        for k, v in tube_launches.items():
+            main_launches[k] += v
+        main_launches["substep_nj4"] += tube_nj4
+        print(f"[launches] tube path: {json.dumps(tube_launches)} "
+              f"substep_nj4 {tube_nj4}")
     print(f"[launches] main path: {json.dumps(main_launches)}")
     if "ref" in phases:
         reference_check(dev)

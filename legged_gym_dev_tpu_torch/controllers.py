@@ -1,13 +1,16 @@
 """Hand-designed tracking controllers.
 
-Counterpart of ``legged_gym_dev_tpu/controllers.py``: ``omega_to_quat``
-and the Raibert-heuristic hopper policy, which the hopper trajectory
-task's ``raibert`` reward term compares the policy's action with. (The
-double-integrator tracking law comes with tube learning.)
+Counterpart of ``legged_gym_dev_tpu/controllers.py``: ``omega_to_quat``,
+the Raibert-heuristic hopper policy (which the hopper trajectory task's
+``raibert`` reward term compares the policy's action with, and which
+drives the hopper's tube-data collection) and the PD law by which a
+double integrator tracks a single-integrator plan (the ROM-tracking
+collection's policy).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -68,3 +71,26 @@ class RaibertHeuristic:
         omega_roll = clip(roll_pos + vel_y, self.clip_ang)
         yaw = quat_to_yaw(obs[:, 6:10])
         return omega_to_quat(omega_pitch, omega_roll, yaw)
+
+
+@dataclasses.dataclass(frozen=True)
+class DoubleSingleTracking:
+    """PD law for a double integrator tracking a single-integrator plan,
+    projected onto the state-dependent input bounds ``clip_v_z``.
+
+    Observation layout: [x (4), z_des (2), v_des (2)]."""
+
+    Kp: float
+    Kd: float
+    clip_v_z: Callable
+
+    @classmethod
+    def create(cls, Kp, Kd, clip_v_z):
+        return cls(Kp=f32(Kp), Kd=f32(Kd), clip_v_z=clip_v_z)
+
+    def __call__(self, obs: torch.Tensor) -> torch.Tensor:
+        x = obs[:, :4]
+        z_des = obs[:, 4:6]
+        v_des = obs[:, 6:8]
+        u = self.Kp * (z_des - x[:, :2]) + self.Kd * (v_des - x[:, 2:])
+        return self.clip_v_z(x, u)

@@ -1,7 +1,7 @@
 """Quaternion / SO(3) / angle math as batched PyTorch functions.
 
-Counterpart of ``legged_gym_dev_tpu/core/maths.py``; only what the RL
-rollout and the hopper tasks use is ported. Quaternions are ``(x, y, z, w)``
+Counterpart of ``legged_gym_dev_tpu/core/maths.py`` (all but
+``torch_rand_sqrt_float``). Quaternions are ``(x, y, z, w)``
 (scalar-last), as in Isaac Gym and the JAX package. Every function is
 batched over leading axes.
 """
@@ -17,6 +17,11 @@ _EPS = 1e-8
 def wrap_to_pi(angle: torch.Tensor) -> torch.Tensor:
     """Wrap angles to (-pi, pi] (floor modulo, as ``jnp.mod``)."""
     return torch.remainder(angle + math.pi, 2.0 * math.pi) - math.pi
+
+
+def wrap_angles(angle: torch.Tensor) -> torch.Tensor:
+    """Wrap angles into [0, 2*pi) (floor modulo, as ``jnp.mod``)."""
+    return torch.remainder(angle, 2.0 * math.pi)
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -67,11 +72,45 @@ def quat_to_yaw(q: torch.Tensor) -> torch.Tensor:
     return torch.atan2(siny_cosp, cosy_cosp)
 
 
+def quat_to_euler_xyz(q: torch.Tensor) -> torch.Tensor:
+    """Extrinsic x-y-z euler angles (roll, pitch, yaw) of an (x,y,z,w)
+    quaternion."""
+    x, y, z, w = q.unbind(-1)
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def euler_xyz_to_quat(rpy: torch.Tensor) -> torch.Tensor:
+    """(x,y,z,w) quaternion from extrinsic x-y-z euler angles."""
+    cr, cp, cy = torch.cos(0.5 * rpy).unbind(-1)
+    sr, sp, sy = torch.sin(0.5 * rpy).unbind(-1)
+    w = cr * cp * cy + sr * sp * sy
+    x = sr * cp * cy - cr * sp * sy
+    y = cr * sp * cy + sr * cp * sy
+    z = cr * cp * sy - sr * sp * cy
+    return torch.stack([x, y, z, w], dim=-1)
+
+
 def yaw_to_quat(yaw: torch.Tensor) -> torch.Tensor:
     """(x,y,z,w) quaternion for a pure-yaw rotation."""
     zeros = torch.zeros_like(yaw)
     return torch.stack([zeros, zeros, torch.sin(0.5 * yaw),
                         torch.cos(0.5 * yaw)], dim=-1)
+
+
+def quat_apply_yaw(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Apply only the yaw component of q to v."""
+    return quat_apply(yaw_to_quat(quat_to_yaw(q)), v)
+
+
+def yaw2rot(yaw: torch.Tensor) -> torch.Tensor:
+    """2x2 world->body rotation for a yaw, row-major [[c, s], [-s, c]];
+    shape (..., 2, 2)."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    return torch.stack([torch.stack([c, s], dim=-1),
+                        torch.stack([-s, c], dim=-1)], dim=-2)
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,11 @@
 
 Counterpart of ``legged_gym_dev_tpu/envs/presets.py`` for the legged
 velocity and trajectory tasks (``make_velocity_env``,
-``make_trajectory_env``, the ANYmal-C trajectory preset) and the hopper
-tasks (``make_hopper_trajectory_env``, ``make_hopper_velocity_env``), with
-the same numbers. The ROM-tracking, Cassie, A1 and rough-terrain presets
-are not ported yet.
+``make_trajectory_env``, the ANYmal-C trajectory preset), the hopper
+tasks (``make_hopper_trajectory_env``, ``make_hopper_velocity_env``) and
+the physics-free ROM-tracking task (``make_rom_tracking_env``), with the
+same numbers. The Cassie, A1 and rough-terrain presets are not ported
+yet.
 
 The JAX package loads its robots from URDF files that are not in this
 repository; every factory here takes the URDF (a path or a string) from
@@ -21,11 +22,12 @@ import numpy as np
 import torch
 
 from ..controllers import RaibertHeuristic
-from ..core.rom import SingleInt2D, make_rom
+from ..core.rom import DoubleInt2D, SingleInt2D, make_rom
 from ..rl.ppo import PPOConfig
 from ..sim.contact import ContactParams
 from ..sim.dynamics import RobotModel
 from ..sim.robot_sim import RobotSim
+from ..sim.rom_sim import RomSim
 from ..sim.urdf import parse_urdf
 from ..trajgen.generator import TrajectoryGenerator
 from ..trajgen.samplers import (
@@ -36,6 +38,7 @@ from ..trajgen.samplers import (
 )
 from ..utils.runtime import resolve_device
 from .registry import task_registry
+from .rom_tracking import RomTrackingEnv
 
 # ref a1_config.py:36-50 default joint angles (URDF joint order FR FL RR RL).
 A1_DEFAULT_ANGLES = {
@@ -415,6 +418,34 @@ def make_hopper_velocity_env(num_envs: int = 4096, add_noise: bool = True,
         episode_length_s=episode_length_s, num_envs=num_envs)
 
 
+def make_rom_tracking_env(num_envs: int = 4096,
+                          episode_length_s: float = 8.0,
+                          rom_dt: float = 0.1, dt_loop: float = 0.05,
+                          add_noise: bool = False, device=None):
+    """A double integrator (dt ``dt_loop``) tracking a SingleInt2D ROM
+    (dt ``rom_dt``). ``add_noise`` is accepted for a uniform factory
+    interface and ignored: this env has no observation noise.
+    ``device=None`` means the CUDA card."""
+    del add_noise
+    dev = resolve_device(device)
+    rom = SingleInt2D.create(rom_dt, [-10, -10], [10, 10], [-1, -1], [1, 1],
+                             device=dev)
+    model = DoubleInt2D.create(dt_loop, [-20, -20, -2, -2], [20, 20, 2, 2],
+                               [-4, -4], [4, 4], device=dev)
+    gen = TrajectoryGenerator.create(
+        rom, UniformSampleHoldDT.create(0.5, 2.0), UniformWeightSampler(),
+        dt_loop=dt_loop, N=4, dN=1, prob_stationary=0.01)
+    sim = RomSim.create(model, gen, num_envs=num_envs,
+                        init_noise_lower=[-0.5, -0.5, -0.1, -0.1],
+                        init_noise_upper=[0.5, 0.5, 0.1, 0.1],
+                        max_rom_distance=[0.3, 0.3])
+    return RomTrackingEnv(sim=sim,
+                          reward_weighting=torch.tensor([1.0, 1.0],
+                                                        device=dev),
+                          tracking_sigma=f32(0.25),
+                          episode_length_s=episode_length_s)
+
+
 # the reference PPO block (the hopper's [128, 64, 32] nets are the policy's)
 HOPPER_PPO = PPOConfig()
 
@@ -424,3 +455,4 @@ task_registry.register("hopper_trajectory", make_hopper_trajectory_env,
                        HOPPER_PPO)
 task_registry.register("hopper_velocity", make_hopper_velocity_env,
                        HOPPER_PPO)
+task_registry.register("rom_tracking", make_rom_tracking_env, PPOConfig())

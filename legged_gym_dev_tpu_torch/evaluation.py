@@ -1,0 +1,241 @@
+"""Evaluation suite: tube coverage, error dynamics and velocity tracking.
+
+Counterpart of the tube parts of ``legged_gym_dev_tpu/evaluation.py``:
+
+- ``evaluate_tube_one_step``, ``evaluate_tube_recursive`` and
+  ``compare_tube_models``: one-step and rollout-recursive coverage of tube
+  networks on held-out rollouts;
+- ``evaluate_tube_on_mpc_trace`` and ``trace_conformal_scale``: the tube
+  along an executed closed-loop trace, and the width multiplier that
+  restores coverage there;
+- ``evaluate_error_dynamics``: recursive signed-error prediction;
+- ``evaluate_velocity_tracking``: command tracking and gait statistics of
+  a velocity-command policy.
+
+Models run on the device their weights lie on. ``evaluate_tracking_policy``
+(it needs the scripted zero/square/circle trajectory generators) and the
+sim2sim comparisons of the JAX module are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .tube.datasets import RolloutData
+from .tube.models import MLP
+from .utils.runtime import fp32_matmul
+
+
+def _apply(model: MLP, x) -> np.ndarray:
+    """``model`` on host inputs, back on the host."""
+    dev = model.weights[0].device
+    with torch.no_grad(), fp32_matmul():
+        return model(torch.as_tensor(np.asarray(x, np.float32),
+                                     device=dev)).cpu().numpy()
+
+
+def evaluate_tube_one_step(model: MLP, data: np.ndarray,
+                           target: np.ndarray) -> Dict[str, float]:
+    """Coverage and error of one-step tube predictions on a dataset."""
+    fw = _apply(model, data)
+    covered = np.all(fw >= target, axis=-1)
+    return {
+        "coverage": float(np.mean(covered)),
+        "mean_pred": float(fw.mean()),
+        "mean_target": float(target.mean()),
+        "mean_excess": float(np.mean(fw - target)),
+    }
+
+
+@torch.no_grad()
+def _recurse(model: MLP, first: torch.Tensor, feats: torch.Tensor,
+             width: int) -> torch.Tensor:
+    """Feed ``model`` its own output along time, for every episode at
+    once: the input at step t is [previous output, feats[:, t]]; the
+    first output is fed ``first`` (E, width). Returns (E, T, out)."""
+    prev, outs = first, []
+    with fp32_matmul():
+        for t in range(feats.shape[1]):
+            prev = model(torch.cat([prev[:, :width], feats[:, t]], dim=-1))
+            outs.append(prev)
+    return torch.stack(outs, dim=1)
+
+
+def evaluate_tube_recursive(model: MLP, rollouts: RolloutData,
+                            window: int = 3) -> Dict[str, float]:
+    """Rollout-recursive evaluation: the model gets its own prediction as
+    the width input along each trajectory. The input layout is
+    ``scalar_tube_dataset(recursive=False)``'s with N=window:
+    [w, sliding(z_rest, v)]. One loop over time for all episodes."""
+    from .tube.datasets import sliding_window
+
+    z, v = rollouts.z[:, :-1], rollouts.v
+    w_true = np.linalg.norm(rollouts.pz_x - rollouts.z, axis=-1)  # (E, T+1)
+    zv = sliding_window(np.concatenate((z[:, :, 2:], v), axis=-1), window,
+                        1, v.shape[-1])
+    T = v.shape[1]
+    dev = model.weights[0].device
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    preds = _recurse(model, t(w_true[:, :1]), t(zv), 1)[..., 0]
+    preds = preds.cpu().numpy()
+    covered = preds >= w_true[:, 1:]
+    return {
+        "recursive_coverage": float(np.mean(covered)),
+        "recursive_mean_excess": float(np.mean(preds - w_true[:, 1:])),
+        "horizon_coverage_half": float(np.mean(covered[:, : T // 2])),
+    }
+
+
+def compare_tube_models(models: Dict[str, tuple], rollouts: RolloutData,
+                        batch: int = 4096, seed: int = 0
+                        ) -> Dict[str, Dict[str, float]]:
+    """Side-by-side coverage of tube-model variants on one shared rollout
+    set, each windowed by the dataset spec it was trained on.
+
+    ``models``: {display_name: (MLP, spec)} with spec either
+    ``{"kind": "scalar", "N": int, "dN": int, "recursive": bool}`` or
+    ``{"kind": "oneshot", "H_fwd": int, "H_rev": int}``. Returns
+    {name: metrics}: one-step coverage and excess for every model (for the
+    one-shot kind, whole-horizon coverage and the first step's), and
+    rollout-recursive coverage for the non-recursive scalar variants with
+    dN=1 (the only layout ``evaluate_tube_recursive`` defines)."""
+    from .tube.datasets import (
+        scalar_horizon_tube_dataset,
+        scalar_tube_dataset,
+    )
+
+    rng = np.random.default_rng(seed)
+    out: Dict[str, Dict[str, float]] = {}
+    for name, (model, spec) in models.items():
+        if spec.get("kind", "scalar") == "oneshot":
+            ds = scalar_horizon_tube_dataset(
+                rollouts, H_fwd=spec.get("H_fwd", 50),
+                H_rev=spec.get("H_rev", 10))
+            x, y = ds.sample_batch(rng, batch)
+            fw = _apply(model, x)
+            metrics = {
+                "coverage": float(np.mean(np.all(fw >= y, axis=-1))),
+                "one_step_coverage": float(np.mean(fw[:, 0] >= y[:, 0])),
+                "mean_excess": float(np.mean(fw - y)),
+            }
+        else:
+            ds = scalar_tube_dataset(
+                rollouts, N=spec.get("N", 1), dN=spec.get("dN", 1),
+                recursive=spec.get("recursive", False))
+            metrics = evaluate_tube_one_step(model, ds.data, ds.target)
+            if not spec.get("recursive", False) and spec.get("dN", 1) == 1:
+                metrics.update(evaluate_tube_recursive(
+                    model, rollouts, window=spec.get("N", 1)))
+        out[name] = metrics
+    return out
+
+
+def evaluate_tube_on_mpc_trace(trace) -> Dict[str, float]:
+    """Does the planned tube bound the tracked robot's error along an
+    executed closed-loop trace? ``trace`` has ``z``, ``w``, ``pz_x``,
+    ``converged`` and ``viol`` (arrays or tensors); the first step is
+    skipped (w is 0 before the first solve has committed a width)."""
+    z = np.asarray(trace.z)[1:]
+    w = np.asarray(trace.w)[1:]
+    err = np.linalg.norm(np.asarray(trace.pz_x)[1:] - z, axis=-1)
+    return {
+        "coverage": float(np.mean(w >= err)),
+        "mean_width": float(w.mean()),
+        "mean_error": float(err.mean()),
+        "max_error": float(err.max()),
+        "mean_margin": float(np.mean(w - err)),
+        "solver_converged_frac": float(np.asarray(trace.converged).mean()),
+        "max_solver_viol": float(np.asarray(trace.viol).max()),
+    }
+
+
+def trace_conformal_scale(trace, alpha: float = 0.9,
+                          w_min: float = 1e-4) -> float:
+    """Split-conformal width multiplier on an executed closed-loop trace:
+    the finite-sample-corrected alpha-quantile of realized error / width
+    over the steps with w > w_min (the pre-first-solve zeros are left
+    out). Compound it onto the model's ``out_scale``."""
+    z = np.asarray(trace.z)
+    w = np.asarray(trace.w).reshape(-1)
+    err = np.linalg.norm(np.asarray(trace.pz_x).reshape(-1, z.shape[-1])
+                         - z.reshape(-1, z.shape[-1]), axis=-1)
+    m = w > w_min
+    ratio = err[m] / w[m]
+    n = ratio.size
+    if n == 0:
+        return 1.0
+    q = min(1.0, np.ceil((n + 1) * alpha) / n)
+    return float(np.quantile(ratio, q, method="higher"))
+
+
+def evaluate_error_dynamics(model: MLP, rollouts: RolloutData,
+                            horizon: int = 25) -> Dict[str, float]:
+    """Recursive signed-error prediction accuracy: from each rollout's
+    initial error, feed the model its own prediction for ``horizon`` steps
+    and compare with the recorded errors. The model maps
+    [e_t, z_t, v_t] -> e_{t+1} (``error_dynamics_dataset`` at N=1)."""
+    e = rollouts.pz_x - rollouts.z          # (B, T+1, n) signed error
+    z = rollouts.z[:, :-1]                   # (B, T, n) planned states
+    v = rollouts.v                           # (B, T, m)
+    T = min(horizon, v.shape[1])
+    n = e.shape[-1]
+    dev = model.weights[0].device
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    feats = np.concatenate([z[:, :T], v[:, :T]], axis=-1)
+    pred = _recurse(model, t(e[:, 0]), t(feats), n).cpu().numpy()
+    actual = e[:, 1:T + 1]
+    one_step_in = np.concatenate([e[:, :-1], z, v], axis=-1).reshape(
+        -1, 2 * n + v.shape[-1])
+    one_step_pred = _apply(model, one_step_in).reshape(e[:, 1:].shape)
+    return {
+        "one_step_mse": float(np.mean((one_step_pred - e[:, 1:]) ** 2)),
+        "recursive_mse": float(np.mean((pred - actual) ** 2)),
+        "recursive_final_err": float(
+            np.mean(np.linalg.norm(pred[:, -1] - actual[:, -1], axis=-1))),
+    }
+
+
+@torch.no_grad()
+def evaluate_velocity_tracking(env, policy, gen: torch.Generator,
+                               steps: int = 500,
+                               settle: int = 50) -> Dict[str, float]:
+    """Command tracking and gait statistics of a velocity-command env:
+    rolls ``policy`` from a reset and reports, over the steps after
+    ``settle``, the mean planar velocity-tracking error, the single-stance
+    fraction (overall and while commanded to move) and the per-step
+    termination rate. One host transfer at the end."""
+    from .core.maths import quat_to_rotmat
+
+    es, obs = env.reset(gen)
+    feet = list(env.feet_spheres)
+    stats = []
+    for _ in range(steps):
+        es, tr = env.step(es, policy(obs))
+        obs = tr.obs
+        robot = es.robot
+        R = quat_to_rotmat(robot.base_quat)
+        v_body = torch.einsum("bji,bj->bi", R, robot.v[:, :3])
+        err = torch.linalg.vector_norm(v_body[:, :2] - es.commands[:, :2],
+                                       dim=-1)
+        f = env._contact_forces(robot)
+        single = torch.sum((f[:, feet, 2] > 1.0).int(), dim=-1) == 1
+        moving = torch.linalg.vector_norm(es.commands[:, :2], dim=-1) > 0.1
+        stats.append(torch.stack([
+            err.mean(), single.float().mean(),
+            (single & moving).sum() / (moving.sum() + 1e-6),
+            tr.done.float().mean()]))
+    s = torch.stack(stats)[settle:].mean(dim=0).cpu().numpy()
+    return {
+        "track_err_m_s": float(s[0]),
+        "single_stance_frac": float(s[1]),
+        "single_stance_moving": float(s[2]),
+        "done_rate_per_step": float(s[3]),
+    }

@@ -27,7 +27,7 @@ def mlp_from_numpy(weights: Sequence[np.ndarray],
     dev = resolve_device(device)
 
     def t(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        return torch.as_tensor(np.array(x, np.float32), device=dev)
 
     return MLP([t(w) for w in weights], [t(b) for b in biases],
                activation=activation, final_activation=final_activation,
@@ -178,6 +178,34 @@ def env_state_from_numpy(jax_state, env, generator=None):
         **fields)
 
 
+def velocity_env_state_from_numpy(jax_state, env, generator=None):
+    """A JAX ``VelocityEnvState`` with numpy leaves as the port's on
+    ``env``'s device, drawing from ``generator`` (a new one seeded 0 by
+    default); the JAX key and the actuator-net and terrain fields, which
+    the port does not have, are dropped."""
+    from .envs.legged_robot_velocity import VelocityEnvState
+    from .sim.dynamics import RobotState
+
+    dev = env.device
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=dev)
+
+    r = jax_state.robot
+    return VelocityEnvState(
+        gen=generator,
+        robot=RobotState(*(t(getattr(r, k)) for k in
+                           ("base_pos", "base_quat", "q", "v"))),
+        episode_sums={k: t(v) for k, v in jax_state.episode_sums.items()},
+        **{f: t(getattr(jax_state, f)) for f in (
+            "commands", "actions", "last_actions", "last_dof_vel",
+            "torques", "feet_air_time", "last_contacts", "episode_step",
+            "command_ranges", "friction", "base_mass", "contact_mult")})
+
+
 def traj_gen_state_from_numpy(jax_tg, generator):
     """A JAX ``TrajGenState`` with numpy leaves as the port's, on the
     generator's device, drawing from ``generator`` (the JAX key is
@@ -231,3 +259,54 @@ def hopper_env_state_from_numpy(jax_state, env, generator=None):
         curriculum_stage=int(jax_state.curriculum_stage),
         trajectory=t(jax_state.trajectory),
         prev_error=t(jax_state.prev_error), **common)
+
+
+def rom_sim_state_from_numpy(jax_state, sim, generator=None):
+    """A JAX ``RomSimState`` with numpy leaves as the port's, on ``sim``'s
+    device, drawing from ``generator`` (a new one seeded 0 on the device by
+    default); the JAX key is dropped."""
+    from .sim.rom_sim import RomSimState
+
+    dev = sim.device
+    if generator is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(0)
+    return RomSimState(
+        gen=generator,
+        root_states=torch.as_tensor(np.array(jax_state.root_states),
+                                    device=dev),
+        traj_gen=traj_gen_state_from_numpy(jax_state.traj_gen, generator),
+        trajectory=torch.as_tensor(np.array(jax_state.trajectory),
+                                   device=dev))
+
+
+def rom_tracking_env_state_from_numpy(jax_state, env, generator=None):
+    """A JAX ``RomTrackingEnvState`` with numpy leaves as the port's on
+    ``env``'s device (its sim state by ``rom_sim_state_from_numpy``), both
+    drawing from ``generator``; the JAX keys are dropped."""
+    from .envs.rom_tracking import RomTrackingEnvState
+
+    sim = rom_sim_state_from_numpy(jax_state.sim, env.sim, generator)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=env.device)
+
+    return RomTrackingEnvState(
+        gen=sim.gen, sim=sim, prev_action=t(jax_state.prev_action),
+        prev_error=t(jax_state.prev_error),
+        episode_step=t(jax_state.episode_step),
+        episode_sums={k: t(v) for k, v in jax_state.episode_sums.items()})
+
+
+def tube_mlp_from_numpy(jax_mlp, device=None) -> MLP:
+    """The JAX package's tube ``MLP`` with numpy leaves (as its
+    ``train-tube --out`` pickles it, after ``jax.tree.map(np.asarray,
+    ...)``) as the port's ``MLP``: weights, biases, both activations and
+    ``out_scale``."""
+    out_scale = getattr(jax_mlp, "out_scale", None)
+    return mlp_from_numpy(
+        list(jax_mlp.weights), list(jax_mlp.biases),
+        activation=jax_mlp.activation,
+        final_activation=jax_mlp.final_activation,
+        out_scale=None if out_scale is None else np.asarray(out_scale),
+        device=device)

@@ -248,3 +248,7 @@ class TrajectoryGenerator:
         alpha = (state.t - (state.k - 1.0) * self.rom.dt) / self.rom.dt
         interp = traj0 + (traj1 - traj0) * alpha[:, None, None]
         return interp[:, ::self.dN, :]
+
+    def get_v_trajectory(self, state: TrajGenState) -> torch.Tensor:
+        """The window's inputs, strided by dN."""
+        return state.v_trajectory[:, ::self.dN, :]

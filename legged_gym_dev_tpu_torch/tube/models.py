@@ -5,11 +5,16 @@ the JAX package stores them, ``W`` of shape ``(in, out)`` applied as
 ``x @ W + b`` (not ``nn.Linear``'s ``(out, in)``), so parameters carry over
 without transposes (``interop.mlp_from_numpy``). Everything here is plain
 ``torch.matmul``: the JAX package computes it outside any Pallas kernel.
+
+``MLP.create`` draws the initial weights; ``tube.train`` trains them under
+autograd. ``save_mlp`` / ``load_mlp`` are the port's model file (the JAX
+package pickles a flax pytree, which needs flax to read).
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -68,6 +73,23 @@ class MLP(nn.Module):
         else:
             self.register_buffer("out_scale", out_scale)
 
+    @classmethod
+    def create(cls, gen: torch.Generator, input_size: int, output_dim: int,
+               num_units: int = 128, num_layers: int = 2,
+               activation: str = "softplus_b5",
+               final_activation: str = "none") -> "MLP":
+        """Kaiming-uniform fan-in weights and biases (``nn.Linear``'s
+        default) drawn from ``gen``, on its device."""
+        sizes = [input_size] + [num_units] * num_layers + [output_dim]
+        ws, bs = [], []
+        for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
+            bound = 1.0 / float(np.sqrt(fan_in))
+            for shape, out in (((fan_in, fan_out), ws), ((fan_out,), bs)):
+                u = torch.rand(shape, generator=gen, device=gen.device)
+                out.append(-bound + u * (2.0 * bound))
+        return cls(ws, bs, activation=activation,
+                   final_activation=final_activation)
+
     def _hidden(self, x):
         """Hidden activations and pre-activations, and the output's
         pre-activation."""
@@ -120,3 +142,28 @@ class MLP(nn.Module):
         for W, a in zip(reversed(list(self.weights[:-1])), reversed(acts_pre)):
             u = (dact(a) * u) @ W.T
         return out, u
+
+
+def save_mlp(model: MLP, path) -> None:
+    """The port's tube-model file: ``torch.save`` of the weights, biases,
+    activation names and ``out_scale`` (CPU tensors)."""
+    torch.save({
+        "weights": [w.detach().cpu() for w in model.weights],
+        "biases": [b.detach().cpu() for b in model.biases],
+        "activation": model.activation,
+        "final_activation": model.final_activation,
+        "out_scale": (None if model.out_scale is None
+                      else model.out_scale.detach().cpu()),
+    }, path)
+
+
+def load_mlp(path, device=None) -> MLP:
+    """The ``MLP`` a ``save_mlp`` file holds, on ``device`` (``None``: the
+    CUDA card)."""
+    from ..utils.runtime import resolve_device
+
+    dev = resolve_device(device)
+    d = torch.load(path, map_location=dev, weights_only=True)
+    return MLP(d["weights"], d["biases"], activation=d["activation"],
+               final_activation=d["final_activation"],
+               out_scale=d["out_scale"])

@@ -11,8 +11,9 @@ Counterpart of ``legged_gym_dev_tpu/utils/config.py``; it reads the same
 Recognized sections: ``task`` / ``experiment_name`` / ``seed`` (scalars),
 ``env`` (preset-factory kwargs incl. a ``rewards.scales`` mapping and a
 ``curriculum`` name), ``policy`` (architecture incl. ``recurrent: true``),
-``train`` (PPOConfig overrides), ``run`` (iterations, seed), ``tube`` and
-``collect`` (read, for the tube-learning slice). Any other top-level
+``train`` (PPOConfig overrides), ``run`` (iterations, seed), ``tube``
+(``tube_spec``: the tube net's dataset, loss, model and training) and
+``collect`` (the ``collect`` subcommand's settings). Any other top-level
 scalar key is an interpolation variable.
 """
 from __future__ import annotations
@@ -57,6 +58,39 @@ def _interpolate(obj: Any, variables: Dict[str, Any]) -> Any:
     if isinstance(obj, list):
         return [_interpolate(v, variables) for v in obj]
     return obj
+
+
+TUBE_DATASETS = ("scalar", "vector", "alpha_scalar", "alpha_vector",
+                 "error", "oneshot")
+TUBE_LOSSES = ("scalar", "vector", "alpha_scalar", "alpha_vector", "error")
+
+
+def tube_spec(tube_cfg: Optional[Dict]) -> Dict[str, Any]:
+    """Normalize a ``tube:`` section (configs/tube_learning/*.yaml): the
+    dataset, loss and model choices as explicit names, with defaults."""
+    cfg = dict(tube_cfg or {})
+    spec = {
+        "dataset": cfg.pop("dataset", "scalar"),
+        "loss": cfg.pop("loss", "scalar"),
+        "alpha": float(cfg.pop("alpha", 0.9)),
+        "num_units": int(cfg.pop("num_units", 128)),
+        "num_layers": int(cfg.pop("num_layers", 2)),
+        "activation": cfg.pop("activation", "softplus_b5"),
+        "epochs": int(cfg.pop("epochs", 100)),
+        "batch_size": int(cfg.pop("batch_size", 1024)),
+        "lr": float(cfg.pop("lr", 1e-3)),
+        "window": int(cfg.pop("window", 3)),
+        "H_fwd": int(cfg.pop("H_fwd", 50)),
+        "H_rev": int(cfg.pop("H_rev", 10)),
+    }
+    if cfg:
+        raise ValueError(f"unknown tube config keys: {sorted(cfg)}")
+    if spec["dataset"] not in TUBE_DATASETS:
+        raise ValueError(f"unknown tube dataset '{spec['dataset']}' "
+                         f"(expected one of {TUBE_DATASETS})")
+    if spec["loss"] not in TUBE_LOSSES:
+        raise ValueError(f"unknown tube loss '{spec['loss']}'")
+    return spec
 
 
 def _load_raw(path: str, _stack=()) -> Dict:

@@ -11,6 +11,10 @@ the two RNGs cannot match), are left out. Tolerance: rtol=atol=1e-4 on
 state, observations and reward (one env step chains 4 substeps, each held
 to 2e-5 in tests/test_torch_substep.py); ``done`` exactly.
 
+The velocity task's step is held the same way, with the command
+curriculum on and the resample and push clocks inside the step
+(``test_quadruped_velocity_step_matches_jax``).
+
 The JAX step is compiled once for the module (about a minute on the CPU).
 """
 import numpy as np
@@ -24,12 +28,19 @@ from legged_gym_dev_tpu.envs.presets import _anymal_c_kwargs as jax_kwargs
 from legged_gym_dev_tpu.envs.presets import (
     make_trajectory_env as jax_make_trajectory_env,
 )
+from legged_gym_dev_tpu.envs.presets import (
+    make_velocity_env as jax_make_velocity_env,
+)
 from legged_gym_dev_tpu_torch.envs import registry
 from legged_gym_dev_tpu_torch.envs.presets import (
     _anymal_c_kwargs,
     make_trajectory_env,
+    make_velocity_env,
 )
-from legged_gym_dev_tpu_torch.interop import env_state_from_numpy
+from legged_gym_dev_tpu_torch.interop import (
+    env_state_from_numpy,
+    velocity_env_state_from_numpy,
+)
 from tests.torch_robot_cases import QUADRUPED_URDF
 
 B = 8
@@ -198,3 +209,103 @@ def test_velocity_task_steps():
         assert bool(torch.isfinite(tr.reward).all())
     assert not torch.equal(state.commands[:, :2], cmd0[:, :2])
     assert bool((state.commands[:, 2].abs() <= 1.0).all())
+
+
+def test_quadruped_velocity_step_matches_jax():
+    """The velocity task's step on the quadruped (command curriculum on)
+    from a carried JAX state: env 0 times out with a tracking sum good
+    enough to widen the command ranges, env 1 reaches the resample clock,
+    env 2 the push clock; the heading controller rewrites every env's
+    yaw-rate command. The curriculum's ranges, the resample and push masks,
+    the rewards and episode info of every env, and the state and
+    observations of the envs those draws do not reach match JAX's (TOL);
+    the redrawn and pushed envs differ only where the draws land. (JAX's
+    velocity step compiles once here, about a minute.)"""
+    kw = dict(num_envs=B, add_noise=False, command_curriculum=True)
+    jenv = jax_make_velocity_env(QUADRUPED_URDF, **jax_kwargs({}), **kw)
+    tenv = make_velocity_env(QUADRUPED_URDF, **_anymal_c_kwargs({}),
+                             device="cpu", **kw)
+    jstep = jax.jit(jenv.step)
+    rng = np.random.default_rng(2)
+    js, _ = jax.jit(jenv.reset)(jax.random.PRNGKey(1))
+    for _ in range(2):
+        js, _ = jstep(js, jnp.asarray(rng.normal(0, 0.5, (B, 12)),
+                                      jnp.float32))
+    every = int(round(jenv.resampling_time_s / jenv.dt))
+    push_every = int(round(jenv.push_interval_s / jenv.dt))
+    steps = np.asarray(js.episode_step).copy()
+    assert (steps + 1 < every).all() and every < push_every
+    steps[:3] = (jenv.max_episode_length - 1, every - 1, push_every - 1)
+    sums = {k: np.asarray(v).copy() for k, v in js.episode_sums.items()}
+    scale = dict(jenv.reward_scales)["tracking_lin_vel"] * jenv.dt
+    sums["tracking_lin_vel"][0] = 0.9 * scale * jenv.max_episode_length
+    js = js.replace(episode_step=jnp.asarray(steps),
+                    episode_sums={k: jnp.asarray(v) for k, v in
+                                  sums.items()})
+    ts = velocity_env_state_from_numpy(jax.tree.map(np.asarray, js), tenv)
+    actions = rng.normal(0, 0.5, (B, 12)).astype(np.float32)
+    js2, jtr = jstep(js, jnp.asarray(actions))
+    ts2, ttr = tenv.step(ts, torch.as_tensor(actions))
+
+    done = np.asarray(jtr.done)
+    np.testing.assert_array_equal(ttr.done.numpy(), done)
+    assert done[0] and not done[1:3].any()
+    np.testing.assert_array_equal(ttr.info["time_outs"].numpy(),
+                                  np.asarray(jtr.info["time_outs"]))
+    # the curriculum widened the lin-vel ranges by 0.5, in both
+    cr0 = np.asarray(js.command_ranges)
+    np.testing.assert_array_equal(ts2.command_ranges.numpy(),
+                                  np.asarray(js2.command_ranges))
+    np.testing.assert_allclose(np.asarray(js2.command_ranges)[:2],
+                               np.clip(cr0[:2] + [-0.5, 0.5], -5, 5))
+    # rewards and episode info precede every draw
+    np.testing.assert_allclose(ttr.reward.numpy(), np.asarray(jtr.reward),
+                               **TOL)
+    for k, v in jtr.info["episode"].items():
+        np.testing.assert_allclose(float(ttr.info["episode"][k]), float(v),
+                                   err_msg=k, **TOL)
+    # the resample clock redraws env 1's commands only, in both
+    redrawn_j = (np.asarray(js2.commands)[:, [0, 1, 3]]
+                 != np.asarray(js.commands)[:, [0, 1, 3]]).any(-1)
+    redrawn_t = (ts2.commands[:, [0, 1, 3]]
+                 != ts.commands[:, [0, 1, 3]]).any(-1).numpy()
+    np.testing.assert_array_equal(redrawn_t[~done], redrawn_j[~done])
+    assert redrawn_t[1] and redrawn_t[~done].sum() == 1
+    # the push sets env 2's planar base velocity, in both
+    v0, vj, vt = (np.asarray(js.robot.v), np.asarray(js2.robot.v),
+                  ts2.robot.v.numpy())
+    assert (np.abs(vt[2, :2]) <= jenv.max_push_vel).all()
+    assert (vt[2, :2] != vj[2, :2]).all()
+    live = ~done
+    live[1:3] = False
+    for f in ("base_pos", "base_quat", "q", "v"):
+        np.testing.assert_allclose(getattr(ts2.robot, f).numpy()[live],
+                                   np.asarray(getattr(js2.robot, f))[live],
+                                   err_msg=f, **TOL)
+    np.testing.assert_allclose(vt[2, 2:], vj[2, 2:], **TOL)
+    np.testing.assert_allclose(ts2.commands.numpy()[live],
+                               np.asarray(js2.commands)[live], **TOL)
+    # the pushed env keeps its commands (yaw rate from the heading
+    # controller, before the push)
+    np.testing.assert_allclose(ts2.commands.numpy()[[2], :],
+                               np.asarray(js2.commands)[[2], :], **TOL)
+    np.testing.assert_allclose(ttr.obs.numpy()[live],
+                               np.asarray(jtr.obs)[live], **TOL)
+    cmd = slice(9, 12)
+    rest = np.r_[0:9, 12:tenv.num_obs]
+    np.testing.assert_allclose(ttr.obs.numpy()[1, rest],
+                               np.asarray(jtr.obs)[1, rest], **TOL)
+    np.testing.assert_allclose(ttr.obs.numpy()[2, 3:],
+                               np.asarray(jtr.obs)[2, 3:], **TOL)
+    assert not np.allclose(ttr.obs.numpy()[1, cmd], np.asarray(
+        jtr.obs)[1, cmd])
+    for f in ("last_actions", "last_dof_vel", "feet_air_time", "torques"):
+        np.testing.assert_allclose(getattr(ts2, f).numpy()[~done],
+                                   np.asarray(getattr(js2, f))[~done],
+                                   err_msg=f, **TOL)
+    np.testing.assert_array_equal(ts2.episode_step.numpy(),
+                                  np.asarray(js2.episode_step))
+    for k in js2.episode_sums:
+        np.testing.assert_allclose(ts2.episode_sums[k].numpy()[~done],
+                                   np.asarray(js2.episode_sums[k])[~done],
+                                   err_msg=k, **TOL)

@@ -169,3 +169,67 @@ def test_training_entry_points_raise_without_card(monkeypatch, tmp_path):
     env = make_hopper_trajectory_env(urdf_path=HOPPER_URDF, num_envs=2,
                                      device="cpu")
     assert env.device.type == "cpu"
+
+
+def test_scan_sees_the_tube_slice():
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for needed in ("legged_gym_dev_tpu_torch/tube/datasets.py",
+                   "legged_gym_dev_tpu_torch/tube/shards.py",
+                   "legged_gym_dev_tpu_torch/tube/train.py",
+                   "legged_gym_dev_tpu_torch/native/__init__.py",
+                   "legged_gym_dev_tpu_torch/evaluation.py",
+                   "legged_gym_dev_tpu_torch/sim/rom_sim.py",
+                   "legged_gym_dev_tpu_torch/envs/rom_tracking.py"):
+        assert needed in files
+    assert ("legged_gym_dev_tpu_torch.native"
+            in _imported_modules(PACKAGE / "tube" / "shards.py"))
+
+
+def test_tube_entry_points_raise_without_card(monkeypatch, tmp_path):
+    """The tube-learning slice's entry points (the ``rom_tracking`` preset,
+    the trainers, the model file's loader, ``cli collect`` and ``cli
+    train-tube`` without ``--cpu``) raise on a machine with no card."""
+    from legged_gym_dev_tpu_torch import cli
+    from legged_gym_dev_tpu_torch.envs import registry
+    from legged_gym_dev_tpu_torch.envs.presets import make_rom_tracking_env
+    from legged_gym_dev_tpu_torch.tube.datasets import TubeDataset
+    from legged_gym_dev_tpu_torch.tube.losses import scalar_tube_loss
+    from legged_gym_dev_tpu_torch.tube.models import MLP, load_mlp, save_mlp
+    from legged_gym_dev_tpu_torch.tube.shards import NumpyTubeLoader
+    from legged_gym_dev_tpu_torch.tube.train import (
+        TrainConfig,
+        train_tube,
+        train_tube_streaming,
+    )
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_rom_tracking_env(num_envs=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.make_env("rom_tracking", num_envs=2)
+    assert make_rom_tracking_env(num_envs=2, device="cpu").device.type \
+        == "cpu"
+    model = MLP.create(torch.Generator().manual_seed(0), 3, 1, num_units=4)
+    ds = TubeDataset(np.zeros((40, 3), np.float32),
+                     np.zeros((40, 1), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_tube(ds, model, scalar_tube_loss, TrainConfig(epochs=1))
+    npz = tmp_path / "r.npz"
+    cli.main(["collect", "--cpu", "--num-envs", "2", "--epochs", "1",
+              "--episode-length-s", "1.0", "--shards", "--out",
+              str(tmp_path / "shards")])
+    loader = NumpyTubeLoader(sorted(map(str, (tmp_path / "shards").iterdir())))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_tube_streaming(loader, MLP.create(
+            torch.Generator(), loader.input_dim, 1, num_units=4),
+            scalar_tube_loss, TrainConfig(epochs=1))
+    save_mlp(model, tmp_path / "m.pt")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_mlp(tmp_path / "m.pt")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["collect", "--num-envs", "2", "--epochs", "1",
+                  "--out", str(npz)])
+    cli.main(["collect", "--cpu", "--num-envs", "2", "--epochs", "1",
+              "--episode-length-s", "1.0", "--out", str(npz)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train-tube", "--data", str(npz), "--epochs", "1"])
