@@ -13,6 +13,10 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    yardstick (``torch.linalg.solve`` / ``cholesky`` / ``cholesky_solve``
    on the assembled banded system; the port never calls these); the build
    report's registers, spills and shared memory per kernel are printed;
+   then the same for the b=10 instances (ExtendedLateralUnicycle's staged
+   block; bt_solve at B=2048, bt_factor + bt_msolve at B=1024 with R=50),
+   with their launch shapes and the b=8 instances' times alone beside
+   them;
 4. main path, through the port's entry points, on bench.py's randomised
    ``gap`` batch: l1 at B=2048 and NN_oneshot (130->128->128->50 softplus
    MLP, random weights from a seed) at B=1024, N=50, with the
@@ -71,8 +75,34 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    hopper's
    Raibert collection (``collect_tracking``, B=4096, 2 ROM ticks: substep
    launches at nj=4 counted);
-12. prints one ``{"kernels": [...]}`` line, then, last,
-   ``{"ok": true, "device": {...}}``.
+12. plan phase (main path of the planning slice, on one card):
+   ``[plan goldens]`` BASELINE configs 1-5 through the port's generic
+   ``solve_nominal`` / ``solve_tube`` / ``closed_loop_tube_mpc`` /
+   ``solve_tube_batched`` at tests/test_goldens.py's bars (the runner of
+   tests/test_torch_goldens.py, loaded by path); ``[plan zoo]`` the six
+   ROMs (b = 5, 7, 6, 7, 8, 10) through ``solve_tube_fast_batched`` l1 at
+   B=2048, N=50, 20x10 on the kernels, and Unicycle with a random
+   131->128->128->50 NN tube at B=1024 (solves/s, feasible fraction,
+   launches per kernel and b); ``[plan cr]`` l1 at N=200 (S=201), B=1024
+   on "auto" (cyclic reduction) and "pallas" (K1 at S=201), plans within
+   2e-3 of each other; ``[plan generic]`` the dense generic l2 solve at
+   B=1024 beside the staged l2 solve, and the generic closed loop at
+   config 4's shapes (N=20, H=15) on B=1024; ``[plan bucketed]`` the
+   two-phase solve at B=2048 beside the single-phase one; ``[plan cli]``
+   ``cli plan`` (staged l1; ``--generic --tube-dyn l2_rolling``;
+   ``--nominal``) and ``cli mpc`` (staged and ``--generic``, H=75), and
+   both with ``--tube-dyn NN_oneshot --H-rev 25`` and the tube phase's
+   calibrated net (a seeded random net of its widths when the tube phase
+   did not run) in the port's model file, a ``.mat`` read back;
+   ``[plan coverage]`` that net through the generic closed loop (H=75,
+   N=50) with ``evaluate_tube_on_mpc_trace`` and
+   ``trace_conformal_scale``; the launch counters zeroed before and read
+   after (``[launches] plan path``, every b of the zoo launched), then the
+   b=10 ROM's plans on the card against the CPU at B=8 with the
+   ``[tube ref]`` kink screen;
+13. prints one ``{"kernels": [...]}`` line (the b=10 instances on rows of
+   their own; ``bt_solve``'s row counts the other block sizes' launches),
+   then, last, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once.
@@ -80,7 +110,8 @@ result line. Without a CUDA device it exits non-zero at once.
 Usage: ``python3 chip_smoke.py`` (all phases), or
 ``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
 debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl,
-train, train_rnn, tube).
+train, train_rnn, tube, plan; ``--phases plan`` is the planning slice
+alone).
 """
 import argparse
 import concurrent.futures
@@ -95,7 +126,7 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl",
-          "train", "train_rnn", "tube")
+          "train", "train_rnn", "tube", "plan")
 N, H_REV = 50, 10
 B_L1, B_NN = 2048, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -294,6 +325,16 @@ def errs(x, ref):
     return ax, ax / max(float(ref.abs().max()), 1e-30)
 
 
+def entry_lists(D, L):
+    """Contiguous (B, T) entries of (B, T, b, b) blocks, as the solver
+    hands them over."""
+    b = D.shape[-1]
+    return ([[D[:, :, i, j].contiguous() for j in range(b)]
+             for i in range(b)],
+            [[L[:, :, i, j].contiguous() for j in range(b)]
+             for i in range(b)])
+
+
 def kernel_phase(dev):
     import torch
 
@@ -302,18 +343,10 @@ def kernel_phase(dev):
     S, b = N + 1, 5
     rec = {}
 
-    def entries(D, L):
-        """Contiguous (B, T) entries, as the solver hands them over."""
-        Df = [[D[:, :, i, j].contiguous() for j in range(b)]
-              for i in range(b)]
-        Lf = [[L[:, :, i, j].contiguous() for j in range(b)]
-              for i in range(b)]
-        return Df, Lf
-
     # -- bt_solve through the entry-form wrapper (K1), B = 2048 and 1024
     for B in (B_L1, B_NN):
         D, L, rhs = spd_systems(B, S, b, 1, seed=B, dev=dev)
-        Df, Lf = entries(D, L)
+        Df, Lf = entry_lists(D, L)
         r = [rhs[:, :, i, 0].contiguous() for i in range(b)]
         x = torch.stack(btk.block_tridiag_solve_entries(Df, Lf, r, b), -1)
         x_pl = torch.stack(
@@ -340,6 +373,7 @@ def kernel_phase(dev):
         x_lib = torch.linalg.solve(K, rhs_d).reshape(B, S, b)
         lib_ax, _ = errs(x, x_lib)
         bms, by = bound("bt_solve", S, b, B)
+        smem = btk.launch_shape("bt_solve", S, b)["smem_bytes"]
         print(f"[kernels] bt_solve B={B}: wrapper {ms:.4f} ms "
               f"({ms / bms:.1f}x bound), kernel alone {k_ms:.4f} ms "
               f"({k_ms / bms:.1f}x bound; device {fmt_ms(k_dev, *k_q)}), "
@@ -347,7 +381,7 @@ def kernel_phase(dev):
               f"{p_ms:.4f} ms, "
               f"torch.linalg.solve {lib_ms:.4f} ms "
               f"(|kernel-library|={lib_ax:.2e}), bound {bms:.4f} ms ({by}), "
-              f"shared memory {btk.solve_smem_bytes(S, b)} B a block")
+              f"shared memory {smem} B a block")
         rec["bt_solve"] = dict(max_abs_err=ax, ms=ms, kernel_only_ms=k_ms,
                                kernel_device_ms=k_dev,
                                plain_ms=p_ms, bound_ms=bms, bound_by=by,
@@ -377,7 +411,7 @@ def kernel_phase(dev):
     #    B=2048 R=51 (parity and time)
     for B, R in ((B_NN, N), (B_L1, N + 1)):
         D, L, rhs = spd_systems(B, S, b, R, seed=B + R, dev=dev)
-        Df, Lf = entries(D, L)
+        Df, Lf = entry_lists(D, L)
         cols = [rhs[:, :, i, :].contiguous() for i in range(b)]
         x = torch.stack(btk.block_tridiag_multirhs_entries(Df, Lf, cols, b),
                         2)
@@ -428,18 +462,20 @@ def kernel_phase(dev):
         del K, Kc
         fb, fby = bound("bt_factor", S, b, B)
         sb, sby = bound("bt_msolve", S, b, B, R)
+        f_smem = btk.launch_shape("bt_factor", S, b)["smem_bytes"]
+        s_smem = btk.launch_shape("bt_msolve", S, b, R)["smem_bytes"]
         print(f"[kernels] multi-RHS B={B} R={R}: bt_factor {f_ms:.4f} ms "
               f"({f_ms / fb:.1f}x bound; device {fmt_ms(f_dev, *f_q)}; "
               f"with its "
               f"table and output "
               f"{ft_ms:.4f}; plain {pf_ms:.4f}, "
               f"torch.linalg.cholesky {lf_ms:.4f}, bound {fb:.4f} {fby}, "
-              f"shared memory {btk.factor_smem_bytes(S, b)} B a block); "
+              f"shared memory {f_smem} B a block); "
               f"bt_msolve {s_ms:.4f} ms ({s_ms / sb:.1f}x bound; device "
               f"{fmt_ms(s_dev, *s_q)}; plain "
               f"{ps_ms:.4f}, torch.cholesky_solve {ls_ms:.4f}, bound "
               f"{sb:.4f} {sby}, shared memory "
-              f"{btk.msolve_smem_bytes(S, R, b)} B a block); "
+              f"{s_smem} B a block); "
               f"wrapper (factor + msolve) {w_ms:.4f} ms")
         if (B, R) == (B_NN, N):
             rec["bt_factor"] = dict(max_abs_err=f_ax, ms=f_ms, plain_ms=pf_ms,
@@ -1347,7 +1383,658 @@ def tube_phase(dev):
     tube_reference(mlp, dev)
     hopper = tube_hopper(dev)
     print("[tube hopper] " + json.dumps(hopper))
-    return plan["launches"], hopper["substep_launches"]
+    return plan["launches"], hopper["substep_launches"], mlp
+
+
+# ---------------------------------------------------------------------------
+# plan phase: the planning layer (ROM zoo, cyclic reduction, generic solver,
+# bucketing, cli plan / mpc, executed-loop coverage)
+# ---------------------------------------------------------------------------
+
+ZOO = {  # ROM: (n, m); staged block b = n + 1 + m
+    "SingleInt2D": (2, 2), "DoubleInt2D": (4, 2), "Unicycle": (3, 2),
+    "LateralUnicycle": (3, 3), "ExtendedUnicycle": (5, 2),
+    "ExtendedLateralUnicycle": (6, 3)}
+B_ZOO, N_CR, B_CR, B_GEN = 2048, 200, 1024, 1024
+H_CLI = 75
+
+
+def load_by_path(name):
+    """A module of tests/ loaded by path (another installed package may
+    own the name ``tests``)."""
+    import importlib.util
+
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "tests" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def random_tube_mlp(n_in, seed, dev, n_out=None):
+    """bench.py's tube MLP: n_in -> 128 -> 128 -> n_out, softplus_b5 with a
+    softplus head, Kaiming-uniform weights from a numpy seed, the last
+    layer x0.1 and its bias -2.5."""
+    from legged_gym_dev_tpu_torch.interop import mlp_from_numpy
+
+    wr = np.random.default_rng(seed)
+    sizes = [n_in, 128, 128, N if n_out is None else n_out]
+    ws, bs = [], []
+    for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
+        bd = 1.0 / np.sqrt(fan_in)
+        ws.append(wr.uniform(-bd, bd, (fan_in, fan_out)))
+        bs.append(wr.uniform(-bd, bd, (fan_out,)))
+    ws[-1] = ws[-1] * 0.1
+    bs[-1] = bs[-1] * 0.0 - 2.5
+    return mlp_from_numpy(ws, bs, activation="softplus_b5",
+                          final_activation="softplus", device=dev)
+
+
+def zoo_batch(rom, B, dev, n_steps=None, seed=0, mlp=None, problem="gap"):
+    """bench.py's randomised batch of a ``PROBLEM_DICT`` problem (``gap``
+    by default) for any ROM of the zoo: x and y of start and goal drawn as
+    bench.py draws them, the other states 0 at both ends; bounds as
+    tests/test_fast_tube.py sets them (+-pos_max on the states, +-vel_max
+    on the inputs), Q = 10 I, R = 10 I."""
+    from legged_gym_dev_tpu_torch.interop import trajopt_params_from_numpy
+    from legged_gym_dev_tpu_torch.solver import PROBLEM_DICT
+
+    prob = PROBLEM_DICT[problem]
+    n, m = ZOO[rom]
+    n_steps = N if n_steps is None else n_steps
+    rng = np.random.default_rng(seed)
+    z0 = np.zeros((B, n))
+    zf = np.zeros((B, n))
+    z0[:, :2] = prob["start"] + rng.uniform(-0.15, 0.15, (B, 2))
+    zf[:, :2] = prob["goal"] + rng.uniform(-0.15, 0.15, (B, 2))
+    obs_c = prob["obs"]["c"] + rng.uniform(-0.05, 0.05, (B, 2, 2))
+    obs_r = prob["obs"]["r"] * rng.uniform(0.85, 1.0, (B, 2))
+    return trajopt_params_from_numpy(
+        rom, prob["dt"], [-prob["pos_max"]] * n, [prob["pos_max"]] * n,
+        [-prob["vel_max"]] * m, [prob["vel_max"]] * m, n_steps, H_REV,
+        10 * np.eye(n), 10 * np.eye(m), z0, zf, obs_c, obs_r,
+        Qw=(0.1 if mlp is not None else 0.0), w_max=1.0, tube_params=mlp,
+        device=dev)
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def solve_record(out, B, wall, n_steps=None):
+    n_steps = N if n_steps is None else n_steps
+    viol = out.sol.viol.cpu().numpy()
+    for name in ("z", "v", "w"):
+        t = getattr(out, name)
+        check(bool(t.isfinite().all()), f"non-finite plan {name}")
+    check(out.z.shape[:2] == (B, n_steps + 1), f"plan shape {out.z.shape}")
+    return dict(batch=B, wall_s=wall, solves_per_s=B / wall,
+                feasible_frac=float(np.mean(viol < 1e-3)),
+                max_viol=float(viol.max()))
+
+
+def plan_goldens(dev):
+    """BASELINE configs 1-5 through the port's generic solver and closed
+    loop on the card, at tests/test_goldens.py's bars
+    (tests/test_torch_goldens.py's runner)."""
+    goldens = load_by_path("test_torch_goldens")
+    out = {}
+    for k in sorted(goldens.CONFIGS):
+        res, wall = timed(lambda: goldens.run_config(k, dev))
+        res["wall_s"] = wall
+        print("[plan goldens] " + json.dumps(res))
+        out[k] = res
+    for k, res in out.items():
+        check(res["ok"], f"golden config {k}: {res}")
+    return out
+
+
+def plan_zoo(dev):
+    """Every ROM of the zoo through ``solve_tube_fast_batched`` (l1, B=2048,
+    N=50, 20x10, the kernels), then Unicycle with the NN tube at B=1024:
+    solves/s, feasible fraction, launches per kernel and b."""
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.solver import (
+        ALConfig,
+        solve_tube_fast_batched,
+    )
+
+    recs = {}
+    runs = [(rom, "l1", B_ZOO) for rom in ZOO] + [
+        ("Unicycle", "NN_oneshot", B_NN)]
+    for rom, tube, B in runs:
+        n, m = ZOO[rom]
+        mlp = (random_tube_mlp(H_REV + (n - 2) + (H_REV + N) * m, 1001, dev)
+               if tube == "NN_oneshot" else None)
+        p = zoo_batch(rom, B, dev, mlp=mlp)
+        cfg = ALConfig(linsolve="pallas", nn_basis_refresh=(
+            3 if tube == "NN_oneshot" else "inner"))
+        before = btk.launches_by_b()
+        out, wall = timed(lambda: solve_tube_fast_batched(
+            p, N, H_REV, tube_kind=tube, scaling=0.5, cfg=cfg,
+            warm_start="interpolate", tube_ws="evaluate", device=dev))
+        after = btk.launches_by_b()
+        b = n + 1 + m
+        rec = dict(rom=rom, tube=tube, b=b, **solve_record(out, B, wall),
+                   launches={k: after[k].get(b, 0) - before[k].get(b, 0)
+                             for k in after})
+        print("[plan zoo] " + json.dumps(rec))
+        check(rec["launches"]["bt_solve"] > 0, f"zoo {rom}: no bt_solve")
+        if tube == "NN_oneshot":
+            for k in ("bt_factor", "bt_msolve"):
+                check(rec["launches"][k] > 0, f"zoo {rom} NN: no {k}")
+        recs[f"{rom}/{tube}"] = rec
+    return recs
+
+
+def plan_zoo_reference(dev, rom="ExtendedLateralUnicycle", B=8):
+    """The b=10 ROM's plans on the card (kernels) against the CPU (plain
+    versions), B=8, an 8x6 schedule, with the ``[tube ref]`` kink screen:
+    a scenario whose two CPU linsolve routes ("pallas", the plain versions,
+    and "thomas") disagree by 2e-3 is left out. Bar: the rest within 2e-3,
+    at least half the batch compared. The batch is of the ``right_wide``
+    problem: on ``gap`` this ROM's problems do not converge (feasible
+    fraction 0.017 at B=2048) and their iterates fork under rounding alone
+    (the two CPU routes 1.4e-2 apart after 8x6; 1.6e-6 on right_wide)."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.solver import (
+        ALConfig,
+        solve_tube_fast_batched,
+    )
+
+    def solve(d, linsolve):
+        out = solve_tube_fast_batched(
+            zoo_batch(rom, B, d, seed=2, problem="right_wide"), N, H_REV,
+            tube_kind="l1", scaling=0.5,
+            cfg=ALConfig(outer_iters=8, inner_iters=6, linsolve=linsolve),
+            warm_start="interpolate", tube_ws="evaluate", device=d)
+        return torch.cat([out.z.reshape(B, -1), out.w], dim=1).cpu()
+
+    card = solve(dev, "pallas")
+    cpu = solve(torch.device("cpu"), "pallas")
+    thomas = solve(torch.device("cpu"), "thomas")
+    d_card = (card - cpu).abs().amax(dim=1).numpy()
+    d_cpu = (thomas - cpu).abs().amax(dim=1).numpy()
+    stable = d_cpu < 2e-3
+    rec = dict(rom=rom, b=10, batch=B, compared=int(stable.sum()),
+               max_card_vs_cpu=float(d_card[stable].max())
+               if stable.any() else None,
+               max_card_vs_cpu_all=float(d_card.max()),
+               max_cpu_routes=float(d_cpu.max()))
+    print("[plan zoo ref] " + json.dumps(rec))
+    check(stable.sum() >= B // 2,
+          f"zoo ref: only {stable.sum()} of {B} scenarios off a kink")
+    check(bool((d_card[stable] < 2e-3).all()),
+          "zoo ref: card and CPU disagree")
+    return rec
+
+
+def plan_cr(dev):
+    """l1 at N=200 (S=201), B=1024: "auto" takes cyclic reduction (plain
+    PyTorch), "pallas" the bt_solve kernel at S=201 (fewer teams a
+    block), on the same batch. Bar: the plans of the scenarios both routes
+    solve to convergence (the solver's own test: viol < 1e-5 and a small
+    projected gradient) within 2e-3 of each other, off a kink of the tube,
+    on at least 40% of the batch (at N=200 the 20x10 schedule converges
+    about half of it). A scenario the schedule leaves
+    unconverged stops wherever its last step left it, and two linear
+    solvers' rounding leave it in two places; near a kink of |v| rounding
+    alone moves a plan by more than 2e-3 (the ``[tube ref]`` screen): a
+    scenario whose "pallas" plan moves by 2e-3 when its start moves by
+    1e-7 is at a kink and left out."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.solver import (
+        ALConfig,
+        solve_tube_fast_batched,
+    )
+    from legged_gym_dev_tpu_torch.solver.staged_scalar import _linsolve
+
+    check(_linsolve(ALConfig(), N_CR + 1) == "cr", "auto does not take cr")
+    p = zoo_batch("SingleInt2D", B_CR, dev, n_steps=N_CR)
+    moved = p.replace(z0=p.z0 + 1e-7)
+    outs, recs = {}, {}
+    for linsolve, pb in (("auto", p), ("pallas", p), ("pallas_moved", moved)):
+        before = btk.launches()["bt_solve"]
+        out, wall = timed(lambda: solve_tube_fast_batched(
+            pb, N_CR, H_REV, tube_kind="l1", scaling=0.5,
+            cfg=ALConfig(linsolve=linsolve.split("_")[0]),
+            warm_start="interpolate", tube_ws="evaluate", device=dev))
+        recs[linsolve] = dict(linsolve=linsolve, N=N_CR,
+                              **solve_record(out, B_CR, wall, N_CR),
+                              bt_solve_launches=btk.launches()["bt_solve"]
+                              - before)
+        outs[linsolve] = (torch.cat([out.z.reshape(B_CR, -1), out.w], dim=1),
+                          out.sol.converged, out.sol.viol)
+        recs[linsolve]["converged_frac"] = float(
+            out.sol.converged.float().mean())
+    def diff(a, b):
+        return (outs[a][0] - outs[b][0]).abs().amax(dim=1).cpu().numpy()
+
+    d, d_moved = diff("auto", "pallas"), diff("pallas", "pallas_moved")
+    both = (outs["auto"][1] & outs["pallas"][1]).cpu().numpy()
+    feas = ((outs["auto"][2] < 1e-3)
+            & (outs["pallas"][2] < 1e-3)).cpu().numpy()
+    kept = both & (d_moved < 2e-3)
+    rec = dict(runs=recs, shape=btk.launch_shape("bt_solve", N_CR + 1, 5),
+               both_converge=int(both.sum()), compared=int(kept.sum()),
+               max_plan_diff=float(d[kept].max()) if kept.any() else None,
+               both_feasible=int(feas.sum()),
+               max_plan_diff_both_feasible=float(d[feas].max()),
+               frac_feasible_within_2e3=float(np.mean(d[feas] < 2e-3)),
+               max_plan_diff_all=float(d.max()),
+               max_moved_start_diff=float(d_moved.max()))
+    print("[plan cr] " + json.dumps(rec))
+    check(recs["auto"]["bt_solve_launches"] == 0
+          and recs["pallas"]["bt_solve_launches"] > 0, "cr routes")
+    check(kept.mean() >= 0.4, f"cr: {kept.sum()} of {B_CR} compared")
+    check(rec["max_plan_diff"] < 2e-3, "cr and pallas plans disagree")
+    return rec
+
+
+def plan_generic(dev):
+    """The dense generic solver (``solve_tube_batched``, l2) at B=1024,
+    N=50 beside the staged l2 solve of the same batch; then the generic
+    closed loop (``closed_loop_tube_mpc_batched``) at config 4's shapes
+    (N=20, H=15, H_rev 10; l2 tube; 20x10 first solve, 8x8 re-solves) on
+    B=1024 randomised starts."""
+    from legged_gym_dev_tpu_torch.core import make_rom
+    from legged_gym_dev_tpu_torch.solver import (
+        PROBLEM_DICT,
+        ALConfig,
+        get_tube_dynamics,
+        solve_tube_batched,
+        solve_tube_fast_batched,
+    )
+    from legged_gym_dev_tpu_torch.solver.mpc import (
+        MPCConfig,
+        closed_loop_tube_mpc_batched,
+    )
+
+    p = zoo_batch("SingleInt2D", B_GEN, dev)
+    gen, wall = timed(lambda: solve_tube_batched(
+        p, get_tube_dynamics("l2", N, scaling=0.5), N, H_REV, ALConfig(),
+        warm_start="interpolate", tube_ws="evaluate", device=dev))
+    rec_g = solve_record(gen, B_GEN, wall)
+    staged, wall = timed(lambda: solve_tube_fast_batched(
+        p, N, H_REV, tube_kind="l2", scaling=0.5,
+        cfg=ALConfig(linsolve="pallas"), warm_start="interpolate",
+        tube_ws="evaluate", device=dev))
+    rec_s = solve_record(staged, B_GEN, wall)
+    feas = ((gen.sol.viol < 1e-3) & (staged.sol.viol < 1e-3)).cpu().numpy()
+    dz = (gen.z - staged.z).abs().amax(dim=(1, 2)).cpu().numpy()
+    rec = dict(generic_l2=rec_g, staged_l2=rec_s,
+               max_dz_cofeasible=float(dz[feas].max()) if feas.any()
+               else None)
+    print("[plan generic] " + json.dumps(rec))
+
+    prob = PROBLEM_DICT["gap"]
+    n_loop, h_loop = 20, 15
+    p = zoo_batch("SingleInt2D", B_GEN, dev, n_steps=n_loop, seed=4)
+    robot = make_rom("DoubleInt2D", prob["dt"], [-np.inf, -np.inf, -0.3,
+                                                 -0.3],
+                     [np.inf, np.inf, 0.3, 0.3], [-0.5, -0.5], [0.5, 0.5],
+                     device=dev)
+    trace, wall = timed(lambda: closed_loop_tube_mpc_batched(
+        p, get_tube_dynamics("l2", n_loop, scaling=0.5), robot,
+        MPCConfig(H=h_loop, N=n_loop, H_rev=H_REV), al_first=ALConfig(),
+        al_loop=ALConfig(outer_iters=8, inner_iters=8),
+        warm_start="interpolate", device=dev))
+    for name in ("z", "v", "w", "pz_x", "viol"):
+        check(bool(getattr(trace, name).isfinite().all()),
+              f"generic loop: non-finite {name}")
+    rec_l = dict(batch=B_GEN, N=n_loop, H=h_loop, wall_s=wall,
+                 s_per_tick=wall / (h_loop + 1),
+                 adopted_frac=float(trace.adopted.float().mean()),
+                 max_resolve_viol=float(trace.viol.max()))
+    print("[plan generic loop] " + json.dumps(rec_l))
+    return rec, rec_l
+
+
+def plan_bucketed(dev, zoo):
+    """``solve_tube_fast_bucketed`` (l1, B=2048, N=50; phase 1 16 of the
+    20 outers) beside the single-phase SingleInt2D row of ``[plan zoo]``
+    (the same batch)."""
+    from legged_gym_dev_tpu_torch.solver import ALConfig
+    from legged_gym_dev_tpu_torch.solver.bucketed import (
+        solve_tube_fast_bucketed,
+    )
+
+    p = zoo_batch("SingleInt2D", B_ZOO, dev)
+    (out, stats), wall = timed(lambda: solve_tube_fast_bucketed(
+        p, N, H_REV, tube_kind="l1", scaling=0.5,
+        cfg=ALConfig(linsolve="pallas"), warm_start="interpolate",
+        tube_ws="evaluate", device=dev))
+    single = zoo["SingleInt2D/l1"]
+    rec = dict(stats=stats, **solve_record(out, B_ZOO, wall),
+               single_phase_feasible_frac=single["feasible_frac"],
+               single_phase_solves_per_s=single["solves_per_s"])
+    print("[plan bucketed] " + json.dumps(rec))
+    check(rec["feasible_frac"] >= single["feasible_frac"] - 1e-9,
+          "bucketed solve less feasible than the single phase")
+    return rec
+
+
+def start_plan_cli(mlp, work):
+    """The port's ``cli plan`` / ``cli mpc`` on the card, each command in
+    a process of its own (``python -m legged_gym_dev_tpu_torch.cli``, as a
+    user runs it), all started together: the staged commands' verdicts
+    and loops are bound by the host's launch rate, one core each. The NN
+    tube commands take ``mlp`` in the port's model file. Returns the
+    running commands for ``finish_plan_cli``."""
+    from legged_gym_dev_tpu_torch.tube.models import save_mlp
+
+    model = work / "tube.pt"
+    save_mlp(mlp, model)
+    nn = ["--tube-dyn", "NN_oneshot", "--H-rev", str(H_REV_TUBE),
+          "--tube-model", str(model)]
+    H = ["--H", str(H_CLI)]
+    commands = [
+        ("plan", ["plan", "--out", str(work / "plan.mat")]),
+        ("plan_generic_l2_rolling", ["plan", "--generic", "--tube-dyn",
+                                     "l2_rolling"]),
+        ("plan_nominal", ["plan", "--nominal"]),
+        ("mpc", ["mpc", *H, "--out", str(work / "mpc.mat")]),
+        ("mpc_generic", ["mpc", "--generic", *H]),
+        ("plan_nn", ["plan", *nn]),
+        ("mpc_nn", ["mpc", *H, *nn]),
+    ]
+    running = []
+    for name, argv in commands:
+        cmd = [sys.executable, "-m", "legged_gym_dev_tpu_torch.cli", *argv,
+               "--N", str(N)]
+        with open(work / f"{name}.out", "w") as out, \
+                open(work / f"{name}.err", "w") as err:
+            proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err)
+        running.append((name, argv[0], time.time(), proc))
+    return running
+
+
+def kill_all(running):
+    for _, _, _, proc in running:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def finish_plan_cli(running, work, timeout_s=900):
+    """Waits for the commands of ``start_plan_cli``, prints and checks
+    each one's JSON line (the JAX package's keys) and reads the ``.mat``
+    files back; a command that fails or outlives ``timeout_s`` fails the
+    phase, and every command still running is killed."""
+    from scipy.io import loadmat
+
+    recs = {}
+    try:
+        for name, cmd, t0, proc in running:
+            proc.wait(timeout=max(1.0, timeout_s - (time.time() - t0)))
+            # its wall: from its start to its output's last write
+            wall = (work / f"{name}.out").stat().st_mtime - t0
+            out = (work / f"{name}.out").read_text()
+            err = (work / f"{name}.err").read_text()
+            check(proc.returncode == 0,
+                  f"cli {name} exited {proc.returncode}: {err[-2000:]}")
+            line = [ln for ln in out.splitlines() if ln.startswith("{")][-1]
+            rec = json.loads(line)
+            print(f"[plan cli] {name} ({wall:.2f} s): {line}")
+            if cmd == "plan":
+                check(rec["viol"] < 1e-3, f"cli {name}: viol {rec['viol']}")
+                check(rec.get("verdict") != "failed", f"cli {name}: failed")
+            else:
+                check(np.isfinite(rec["goal_dist"]),
+                      f"cli {name}: goal_dist")
+                check(rec.get("plan_verdict") != "failed",
+                      f"cli {name}: failed")
+            recs[name] = dict(wall_s=wall, **rec)
+    finally:
+        kill_all(running)
+    for name, keys in (("plan.mat", ("z", "v", "w")),
+                       ("mpc.mat", ("z", "v", "w", "pz_x", "adopted"))):
+        m = loadmat(work / name)
+        check(all(k in m and np.isfinite(m[k]).all() for k in keys),
+              f"cli {name}: {sorted(m)}")
+    print(f"[plan cli] .mat files read back: mpc z {m['z'].shape}")
+    return recs
+
+
+def plan_coverage(dev, mlp):
+    """The one-shot net through the generic closed loop (H=75, N=50,
+    H_rev 25, one scenario of the gap problem), then the executed-loop
+    coverage and the trace's conformal scale."""
+    from legged_gym_dev_tpu_torch.core import make_rom
+    from legged_gym_dev_tpu_torch.evaluation import (
+        evaluate_tube_on_mpc_trace,
+        trace_conformal_scale,
+    )
+    from legged_gym_dev_tpu_torch.interop import trajopt_params_from_numpy
+    from legged_gym_dev_tpu_torch.solver import (
+        PROBLEM_DICT,
+        get_tube_dynamics,
+    )
+    from legged_gym_dev_tpu_torch.solver.mpc import (
+        MPCConfig,
+        closed_loop_tube_mpc,
+    )
+
+    prob = PROBLEM_DICT["gap"]
+    p = trajopt_params_from_numpy(
+        "SingleInt2D", prob["dt"], [-prob["pos_max"]] * 2,
+        [prob["pos_max"]] * 2, [-prob["vel_max"]] * 2,
+        [prob["vel_max"]] * 2, N, H_REV_TUBE, 10 * np.eye(2),
+        10 * np.eye(2), prob["start"], prob["goal"], prob["obs"]["c"],
+        prob["obs"]["r"], Qw=0.0, w_max=1.0, tube_params=mlp, device=dev)
+    robot = make_rom("DoubleInt2D", prob["dt"], [-np.inf, -np.inf, -0.3,
+                                                 -0.3],
+                     [np.inf, np.inf, 0.3, 0.3], [-0.5, -0.5], [0.5, 0.5],
+                     device=dev)
+    trace, wall = timed(lambda: closed_loop_tube_mpc(
+        p, get_tube_dynamics("NN_oneshot", N), robot,
+        MPCConfig(H=H_CLI, N=N, H_rev=H_REV_TUBE), device=dev))
+    cov = evaluate_tube_on_mpc_trace(trace)
+    scale = trace_conformal_scale(trace)
+    rec = dict(H=H_CLI, N=N, H_rev=H_REV_TUBE, wall_s=wall,
+               adopted_frac=float(trace.adopted.float().mean()), **cov,
+               trace_conformal_scale=scale)
+    print("[plan coverage] " + json.dumps(rec))
+    check(np.isfinite(cov["mean_error"]) and np.isfinite(scale),
+          "coverage: non-finite")
+    return rec
+
+
+def plan_phase(dev, mlp=None):
+    """The planning layer on the card; ``mlp`` the tube phase's calibrated
+    one-shot net, else a seeded random net of its widths. Returns the
+    launches (per kernel, and per kernel and b) of its solves."""
+    import shutil
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+
+    work = ROOT / "build" / "chip_smoke_plan"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    if mlp is None:
+        mlp = random_tube_mlp(H_REV_TUBE + (H_REV_TUBE + N) * 2, 1002, dev)
+    btk.reset_launches()
+    t0 = time.perf_counter()
+    plan_goldens(dev)
+    zoo = plan_zoo(dev)
+    plan_cr(dev)
+    plan_generic(dev)
+    plan_bucketed(dev, zoo)
+    # the CLI's processes run beside the coverage loop; their launches are
+    # their own processes' and are not counted here
+    running = start_plan_cli(mlp, work)
+    try:
+        plan_coverage(dev, mlp)
+    except BaseException:
+        kill_all(running)
+        raise
+    finish_plan_cli(running, work)
+    launches, by_b = btk.launches(), btk.launches_by_b()
+    print(f"[launches] plan path: {json.dumps(launches)} by b "
+          f"{json.dumps(by_b)} in {time.perf_counter() - t0:.1f} s")
+    for b in sorted({n + 1 + m for n, m in ZOO.values()}):
+        check(by_b["bt_solve"].get(b, 0) > 0, f"plan path: no b={b} launch")
+    plan_zoo_reference(dev)
+    return launches, by_b
+
+
+def kernels_alone_ms(b, dev):
+    """The three block-tridiagonal kernels alone (CUDA events over
+    back-to-back launches) at block size b and the zoo's shapes, each
+    checked against its plain version first: {kernel: ms}."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+
+    S, out = N + 1, {}
+    D, L, rhs = spd_systems(B_ZOO, S, b, 1, seed=b, dev=dev)
+    Df, Lf = entry_lists(D, L)
+    r = [rhs[:, :, i, 0].contiguous() for i in range(b)]
+    args, x = btk.prepare_solve_entries(Df, Lf, r, b)
+    btk._launch_solve(args, S, B_ZOO, b, dev)
+    x_pl = btk.block_tridiag_solve_entries_plain(Df, Lf, r, b)
+    torch.cuda.synchronize()
+    check(errs(x, torch.stack(x_pl))[1] <= TOL_REL, f"bt_solve b={b}")
+    out["bt_solve"] = time_ms(
+        lambda: btk._launch_solve(args, S, B_ZOO, b, dev), 50)
+    D, L, rhs = spd_systems(B_NN, S, b, N, seed=b + 1, dev=dev)
+    Df, Lf = entry_lists(D, L)
+    cols = [rhs[:, :, i, :].contiguous() for i in range(b)]
+    fargs, frec, rargs, xo = btk.prepare_multirhs_entries(Df, Lf, cols, b)
+    btk._launch_factor(fargs, S, B_NN, b, dev)
+    btk._launch_msolve(frec, rargs, xo, S, B_NN, N, b, dev)
+    x_pl = btk.block_tridiag_multirhs_entries_plain(Df, Lf, cols, b)
+    torch.cuda.synchronize()
+    check(errs(xo, torch.stack(x_pl))[1] <= TOL_REL, f"bt_msolve b={b}")
+    out["bt_factor"] = time_ms(
+        lambda: btk._launch_factor(fargs, S, B_NN, b, dev), 20)
+    out["bt_msolve"] = time_ms(
+        lambda: btk._launch_msolve(frec, rargs, xo, S, B_NN, N, b, dev), 20)
+    return out
+
+
+def kernel_phase_b10(dev):
+    """The b=10 instances (ExtendedLateralUnicycle's staged block) of the
+    three block-tridiagonal kernels against their plain versions at the
+    zoo's shapes (S=51; bt_solve at B=2048, bt_factor + bt_msolve at
+    B=1024 with R=50), timed as the b=5 ones, with their launch shapes.
+    Returns the kernels-line records bt_solve_b10, bt_factor_b10 and
+    bt_msolve_b10."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+
+    S, b = N + 1, 10
+    rec = {}
+    shapes = {k: btk.launch_shape(k, S, b, R=N)
+              for k in ("bt_solve", "bt_factor", "bt_msolve")}
+    print(f"[kernels] b=10 launch shapes at S={S}, R={N}: "
+          + json.dumps(shapes))
+    b8 = kernels_alone_ms(8, dev)
+    print(f"[kernels] b=8 alone at the same shapes: {json.dumps(b8)}")
+    for k, sh in shapes.items():
+        check(sh["smem_bytes"] > 0, f"b=10 {k} does not fit: {sh}")
+
+    B = B_ZOO
+    D, L, rhs = spd_systems(B, S, b, 1, seed=B + b, dev=dev)
+    Df, Lf = entry_lists(D, L)
+    r = [rhs[:, :, i, 0].contiguous() for i in range(b)]
+    x = torch.stack(btk.block_tridiag_solve_entries(Df, Lf, r, b), -1)
+    x_pl = torch.stack(btk.block_tridiag_solve_entries_plain(Df, Lf, r, b),
+                       -1)
+    torch.cuda.synchronize()
+    ax, rel = errs(x, x_pl)
+    check(rel <= TOL_REL, f"bt_solve b=10 rel err {rel}")
+    ms = time_ms(lambda: btk.block_tridiag_solve_entries(Df, Lf, r, b), 20)
+    args, _ = btk.prepare_solve_entries(Df, Lf, r, b)
+    k_ms = time_ms(lambda: btk._launch_solve(args, S, B, b, dev), 50)
+    k_dev, *k_q = device_ms(lambda: btk._launch_solve(args, S, B, b, dev))
+    p_ms = time_ms(lambda: btk.block_tridiag_solve_entries_plain(
+        Df, Lf, r, b), 3, warmup=1)
+    K = dense_system(D, L)
+    rhs_d = rhs[..., 0].reshape(B, S * b, 1)
+    lib_ms = time_ms(lambda: torch.linalg.solve(K, rhs_d), 3, warmup=1)
+    del K
+    bms, by = bound("bt_solve", S, b, B)
+    print(f"[kernels] bt_solve b=10 B={B}: max_abs_err={ax:.3e} "
+          f"rel={rel:.3e}; wrapper {ms:.4f} ms, kernel alone {k_ms:.4f} ms "
+          f"({k_ms / bms:.1f}x bound; device {fmt_ms(k_dev, *k_q)}), plain "
+          f"{p_ms:.4f} ms, torch.linalg.solve {lib_ms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by})")
+    rec["bt_solve_b10"] = dict(
+        max_abs_err=ax, ms=ms, kernel_only_ms=k_ms, kernel_device_ms=k_dev,
+        plain_ms=p_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+        x_bound=ms / bms, kernel_only_x_bound=k_ms / bms, shape=[B, S, b],
+        launch_shape=shapes["bt_solve"], b8_alone_ms=b8["bt_solve"])
+
+    B, R = B_NN, N
+    D, L, rhs = spd_systems(B, S, b, R, seed=B + R + b, dev=dev)
+    Df, Lf = entry_lists(D, L)
+    cols = [rhs[:, :, i, :].contiguous() for i in range(b)]
+    x = torch.stack(btk.block_tridiag_multirhs_entries(Df, Lf, cols, b), 2)
+    x_pl = torch.stack(
+        btk.block_tridiag_multirhs_entries_plain(Df, Lf, cols, b), 2)
+    fargs, frec, rargs, xo = btk.prepare_multirhs_entries(Df, Lf, cols, b)
+
+    def factor():
+        btk._launch_factor(fargs, S, B, b, dev)
+
+    def msolve():
+        btk._launch_msolve(frec, rargs, xo, S, B, R, b, dev)
+
+    factor()
+    rec_pl = btk.factor_records_plain(Df, Lf, b, B, S)
+    torch.cuda.synchronize()
+    f_ax, f_rel = errs(frec, rec_pl)
+    ax, rel = errs(x, x_pl)
+    check(f_rel <= TOL_REL, f"bt_factor b=10 rel err {f_rel}")
+    check(rel <= TOL_REL, f"bt_msolve b=10 rel err {rel}")
+    f_ms = time_ms(factor, 20)
+    f_dev, *f_q = device_ms(factor)
+    s_ms = time_ms(msolve, 20)
+    s_dev, *s_q = device_ms(msolve)
+    pf_ms = time_ms(lambda: btk._factor_plain(D, L), 3, warmup=1)
+    chol_list = btk._factor_plain(D, L)
+    ps_ms = time_ms(lambda: btk._substitute_plain(chol_list, L, rhs), 3,
+                    warmup=1)
+    K = dense_system(D, L)
+    lf_ms = time_ms(lambda: torch.linalg.cholesky(K), 3, warmup=1)
+    Kc = torch.linalg.cholesky(K)
+    rhs_d = rhs.reshape(B, S * b, R)
+    ls_ms = time_ms(lambda: torch.cholesky_solve(rhs_d, Kc), 3, warmup=1)
+    del K, Kc
+    fb, fby = bound("bt_factor", S, b, B)
+    sb, sby = bound("bt_msolve", S, b, B, R)
+    print(f"[kernels] b=10 multi-RHS B={B} R={R}: bt_factor "
+          f"max_abs_err={f_ax:.3e} rel={f_rel:.3e}, {f_ms:.4f} ms "
+          f"({f_ms / fb:.1f}x bound; device {fmt_ms(f_dev, *f_q)}), plain "
+          f"{pf_ms:.4f}, torch.linalg.cholesky {lf_ms:.4f}, bound "
+          f"{fb:.4f} {fby}; bt_msolve max_abs_err={ax:.3e} rel={rel:.3e}, "
+          f"{s_ms:.4f} ms ({s_ms / sb:.1f}x bound; device "
+          f"{fmt_ms(s_dev, *s_q)}), plain {ps_ms:.4f}, "
+          f"torch.cholesky_solve {ls_ms:.4f}, bound {sb:.4f} {sby}")
+    rec["bt_factor_b10"] = dict(
+        max_abs_err=f_ax, ms=f_ms, kernel_device_ms=f_dev, plain_ms=pf_ms,
+        bound_ms=fb, bound_by=fby, library_ms=lf_ms, x_bound=f_ms / fb,
+        shape=[B, S, b], launch_shape=shapes["bt_factor"],
+        b8_alone_ms=b8["bt_factor"])
+    rec["bt_msolve_b10"] = dict(
+        max_abs_err=ax, ms=s_ms, kernel_device_ms=s_dev, plain_ms=ps_ms,
+        bound_ms=sb, bound_by=sby, library_ms=ls_ms, x_bound=s_ms / sb,
+        shape=[B, S, b, R], launch_shape=shapes["bt_msolve"],
+        b8_alone_ms=b8["bt_msolve"])
+    return rec
 
 
 def main(argv=None):
@@ -1394,8 +2081,11 @@ def main(argv=None):
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    with fp32_matmul():
-        krec = kernel_phase(dev) if "kernels" in phases else {}
+    krec = {}
+    if "kernels" in phases:
+        with fp32_matmul():
+            krec = kernel_phase(dev)
+            krec.update(kernel_phase_b10(dev))
     if "substep" in phases:
         krec["substep"], krec["substep_nj4"] = substep_phase(dev)
     btk.reset_launches()
@@ -1422,13 +2112,20 @@ def main(argv=None):
             main_launches["substep_nj4"] += rec["substep_launches"]
             if phase == "train":
                 hopper = trained
+    tube_mlp = None
     if "tube" in phases:
-        tube_launches, tube_nj4 = tube_phase(dev)
+        tube_launches, tube_nj4, tube_mlp = tube_phase(dev)
         for k, v in tube_launches.items():
             main_launches[k] += v
         main_launches["substep_nj4"] += tube_nj4
         print(f"[launches] tube path: {json.dumps(tube_launches)} "
               f"substep_nj4 {tube_nj4}")
+    if "plan" in phases:
+        plan_launches, by_b = plan_phase(dev, tube_mlp)
+        for k, v in plan_launches.items():
+            # the b=10 instances have rows of their own in the kernels line
+            main_launches[k] += v - by_b[k].get(10, 0)
+            main_launches[f"{k}_b10"] = by_b[k].get(10, 0)
     print(f"[launches] main path: {json.dumps(main_launches)}")
     if "ref" in phases:
         reference_check(dev)
@@ -1448,12 +2145,13 @@ def main(argv=None):
 
     if krec:
         kernels = []
-        for name in ("bt_solve", "bt_factor", "bt_msolve", "substep",
+        for name in ("bt_solve", "bt_factor", "bt_msolve", "bt_solve_b10",
+                     "bt_factor_b10", "bt_msolve_b10", "substep",
                      "substep_nj4"):
             if name not in krec:
                 continue
             r = krec[name]
-            base = name.split("_nj")[0]
+            base = re.sub(r"_(nj4|b10)$", "", name)
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCES[base],
                 "replaces": REPLACES[base],

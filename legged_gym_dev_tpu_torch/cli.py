@@ -1,8 +1,8 @@
-"""Command-line entry point of the port: ``train``, ``collect`` and
-``train-tube``.
+"""Command-line entry point of the port: ``train``, ``collect``,
+``train-tube``, ``plan`` and ``mpc``.
 
-Counterpart of those subcommands of ``legged_gym_dev_tpu/cli.py`` (``play``,
-``plan`` and ``mpc`` are not ported yet):
+Counterpart of those subcommands of ``legged_gym_dev_tpu/cli.py`` (``play``
+is not ported yet):
 
     python -m legged_gym_dev_tpu_torch.cli train \\
         --config configs/rl/hopper_single_int.yaml
@@ -12,6 +12,9 @@ Counterpart of those subcommands of ``legged_gym_dev_tpu/cli.py`` (``play``,
     python -m legged_gym_dev_tpu_torch.cli train-tube \\
         --config configs/tube_learning/tube_learning_oneshot.yaml \\
         --data data/rollouts.npz --out data/tube.pt
+    python -m legged_gym_dev_tpu_torch.cli plan --problem gap --out plan.mat
+    python -m legged_gym_dev_tpu_torch.cli mpc --tube-dyn NN_oneshot \
+        --H-rev 25 --tube-model data/tube.pt
 
 ``train`` trains a task of the registry through ``make_alg_runner`` and
 ``OnPolicyRunner.learn``; the YAML's ``env`` section holds the preset's
@@ -20,8 +23,13 @@ rollouts (the physics-free ``rom_tracking`` task with its PD tracker, or a
 rigid-body trajectory task with the Raibert heuristic or a trained
 policy) into an ``.npz`` file or ``.tdl`` shards. ``train-tube`` trains a
 tube network on them and writes the port's model file
-(``tube.models.save_mlp``). Everything runs on the CUDA card (``--cpu``
-for the CPU); CLI flags override the YAML.
+(``tube.models.save_mlp``). ``plan`` solves one tube-MPC plan of a
+``PROBLEM_DICT`` problem and ``mpc`` runs the closed loop on it: by default
+through the staged solver (the block-tridiagonal kernels on the card) with
+a restoration verdict, with ``--generic`` (and always for the rolling
+tubes) through the dense generic solver. Everything runs on the CUDA card
+(``--cpu`` for the CPU); CLI flags override the YAML. ``plan`` and ``mpc``
+print one JSON line with the JAX package's keys.
 """
 from __future__ import annotations
 
@@ -275,6 +283,230 @@ def cmd_train_tube(args):
         print(f"saved tube model -> {args.out}")
 
 
+def _device(args):
+    from .utils.runtime import resolve_device
+
+    return resolve_device("cpu" if args.cpu else None)
+
+
+def _load_tube_model(args, device):
+    """The one-shot tube net of ``--tube-model`` (the port's model file,
+    ``tube.models.save_mlp``), with its horizon checked against --N and
+    --H-rev: its output is the width horizon, its input
+    ``[e (H_rev), vec_F([v_prev; v]) ((H_rev + N) x 2)]`` (SingleInt2D has
+    no z0[2:])."""
+    from .tube.models import load_mlp
+
+    if not args.tube_model:
+        raise SystemExit("--tube-dyn NN_oneshot requires --tube-model "
+                         "(train one with `train-tube --oneshot --out ...`)")
+    model = load_mlp(args.tube_model, device=device)
+    out_dim = model.weights[-1].shape[1]
+    if out_dim != args.N:
+        raise SystemExit(
+            f"tube model predicts H_fwd={out_dim} widths but --N={args.N}; "
+            "the one-shot horizon must equal the planning horizon")
+    in_dim = model.weights[0].shape[0]
+    expect = args.H_rev + (args.H_rev + args.N) * 2
+    if in_dim != expect:
+        raise SystemExit(
+            f"tube model input dim {in_dim} != {expect} expected for "
+            f"H_rev={args.H_rev}, N={args.N} (was it trained with "
+            "--oneshot and matching --H-rev/--H-fwd?)")
+    return model
+
+
+def _make_problem(args, device, tube_params=None):
+    import numpy as np
+
+    from .interop import trajopt_params_from_numpy
+    from .solver import PROBLEM_DICT
+
+    prob = PROBLEM_DICT[args.problem]
+    p = trajopt_params_from_numpy(
+        "SingleInt2D", prob["dt"], [-prob["pos_max"]] * 2,
+        [prob["pos_max"]] * 2, [-prob["vel_max"]] * 2,
+        [prob["vel_max"]] * 2, args.N, args.H_rev, 10 * np.eye(2),
+        10 * np.eye(2), prob["start"], prob["goal"], prob["obs"]["c"],
+        prob["obs"]["r"], Qw=0.0, w_max=1.0, tube_params=tube_params,
+        device=device)
+    return prob, p
+
+
+def _staged_cfg(args, device, loop: bool = False):
+    """The staged solver's config: the chunked Woodbury refresh for the NN
+    tube, the 4x6 warm re-solve schedule in the loop, and the hand-written
+    kernels on the card (their plain versions are slower on the CPU than
+    the block-Thomas, as the JAX package's interpreted Pallas is)."""
+    from .solver import ALConfig
+
+    kw = {}
+    if args.tube_dyn == "NN_oneshot":
+        kw["nn_basis_refresh"] = 3
+    if loop:
+        kw.update(outer_iters=4, inner_iters=6)
+    if device.type == "cuda":
+        kw["linsolve"] = "pallas"
+    return ALConfig(**kw)
+
+
+def _staged_problem(args, p):
+    from .solver import StagedProblem
+
+    return StagedProblem(
+        n=p.rom.n, m=p.rom.m, N=args.N, K=p.obs_r.shape[-1],
+        tube_kind=("nn" if args.tube_dyn == "NN_oneshot" else args.tube_dyn),
+        scaling=0.5, track_ref=False)
+
+
+def _verdict(args, p, sol):
+    """The restoration verdict of a staged solve of one scenario."""
+    from .solver import VERDICT_NAMES, certify_staged, staged_bounds
+
+    sp = _staged_problem(args, p)
+    lb_u, ub_u = staged_bounds(p, sp.n, sp.m, args.N)
+    cert = certify_staged(sp, p, sol.x.reshape(1, args.N + 1, -1), sol.viol,
+                          lb_u, ub_u)
+    return VERDICT_NAMES[int(cert.verdict[0])], float(cert.viol_restored[0])
+
+
+def _generic(args) -> bool:
+    # the rolling tubes have no staged form
+    return args.generic or args.tube_dyn.endswith("_rolling")
+
+
+def cmd_plan(args):
+    from .solver import get_tube_dynamics, solve_nominal, solve_tube
+    from .solver.fast_tube import solve_tube_fast
+
+    dev = _device(args)
+    tube_params = (_load_tube_model(args, dev)
+                   if args.tube_dyn == "NN_oneshot" and not args.nominal
+                   else None)
+    prob, p = _make_problem(args, dev, tube_params)
+    verdict_info = {}
+    if args.nominal:
+        z, v, sol = solve_nominal(p, args.N, warm_start="interpolate",
+                                  device=dev)
+        w = None
+    elif _generic(args):
+        tube_fn = get_tube_dynamics(args.tube_dyn, args.N, scaling=0.5)
+        out = solve_tube(p, tube_fn, args.N, args.H_rev,
+                         warm_start="nominal", tube_ws="evaluate",
+                         device=dev)
+        z, v, w, sol = out.z, out.v, out.w, out.sol
+    else:
+        out = solve_tube_fast(p, args.N, args.H_rev,
+                              tube_kind=args.tube_dyn, scaling=0.5,
+                              cfg=_staged_cfg(args, dev),
+                              warm_start="interpolate", tube_ws="evaluate")
+        z, v, w, sol = out.z, out.v, out.w, out.sol
+        verdict, viol_restored = _verdict(args, p, sol)
+        verdict_info = {"verdict": verdict, "viol_restored": viol_restored}
+    print(json.dumps({
+        "viol": float(sol.viol[0]), "obj": float(sol.obj[0]),
+        "converged": bool(sol.converged[0]), **verdict_info,
+    }))
+    if args.out:
+        payload = {"z": z[0].cpu().numpy(), "v": v[0].cpu().numpy(),
+                   "z0": prob["start"], "zf": prob["goal"],
+                   "obs_c": prob["obs"]["c"], "obs_r": prob["obs"]["r"]}
+        if w is not None:
+            payload["w"] = w[0].cpu().numpy()
+        _save_mat_or_npz(args.out, payload)
+        print(f"saved plan -> {args.out}")
+
+
+def cmd_mpc(args):
+    import numpy as np
+
+    from .core import make_rom
+
+    dev = _device(args)
+    tube_params = (_load_tube_model(args, dev)
+                   if args.tube_dyn == "NN_oneshot" else None)
+    prob, p = _make_problem(args, dev, tube_params)
+    robot = make_rom("DoubleInt2D", prob["dt"], [-np.inf, -np.inf, -0.3, -0.3],
+                     [np.inf, np.inf, 0.3, 0.3], [-0.5, -0.5], [0.5, 0.5],
+                     device=dev)
+    if _generic(args):
+        from .solver import get_tube_dynamics
+        from .solver.mpc import MPCConfig, closed_loop_tube_mpc
+
+        tube_fn = get_tube_dynamics(args.tube_dyn, args.N, scaling=0.5)
+        trace = closed_loop_tube_mpc(
+            p, tube_fn, robot, MPCConfig(H=args.H, N=args.N,
+                                         H_rev=args.H_rev), device=dev)
+        z = trace.z[0].cpu().numpy()
+        pzx_t = trace.pz_x[0].cpu().numpy()
+        result = {
+            "goal_dist": float(np.linalg.norm(z[-1] - prob["goal"])),
+            "max_resolve_viol": float(trace.viol.max()),
+            "tracking_err_max": float(np.abs(z - pzx_t).max()),
+        }
+        payload_extra = {k: getattr(trace, k)[0].cpu().numpy()
+                         for k in ("z_sol", "v_sol", "w_sol")}
+        v_t, w_t = trace.v[0].cpu().numpy(), trace.w[0].cpu().numpy()
+        adopted = None
+    else:
+        from .solver.fast_tube import (
+            closed_loop_tube_mpc_fast,
+            solve_tube_fast,
+        )
+
+        cfg_first = _staged_cfg(args, dev)
+        cfg_loop = _staged_cfg(args, dev, loop=True)
+        out0 = solve_tube_fast(p, args.N, args.H_rev,
+                               tube_kind=args.tube_dyn, scaling=0.5,
+                               cfg=cfg_first, warm_start="interpolate",
+                               tube_ws="evaluate")
+        verdict, _ = _verdict(args, p, out0.sol)
+        z_t, v_t, w_t, pzx_t, viols, adopts = closed_loop_tube_mpc_fast(
+            p, robot, tube_kind=args.tube_dyn, scaling=0.5, H=args.H,
+            N=args.N, H_rev=args.H_rev, cfg_first=cfg_first,
+            cfg_loop=cfg_loop, device=dev)
+        z = z_t[0].cpu().numpy()
+        pzx_t = pzx_t[0].cpu().numpy()
+        adopted = adopts[0].cpu().numpy()
+        result = {
+            "goal_dist": float(np.linalg.norm(z[-1] - prob["goal"])),
+            "max_resolve_viol": float(viols.max()),
+            "tracking_err_max": float(np.abs(z - pzx_t).max()),
+            "plan_verdict": verdict,
+            "verdicts": {verdict: 1},
+            "adopted_frac": float(adopted.mean()),
+        }
+        payload_extra = {}
+        v_t, w_t = v_t[0].cpu().numpy(), w_t[0].cpu().numpy()
+    print(json.dumps(result))
+    if args.out:
+        # .mat export, as the reference's closed-loop script
+        payload = {
+            "z": z, "v": v_t, "w": w_t, "pz_x": pzx_t,
+            "z0": prob["start"], "zf": prob["goal"],
+            "obs_x": prob["obs"]["c"][:, 0], "obs_y": prob["obs"]["c"][:, 1],
+            "obs_r": prob["obs"]["r"], **payload_extra,
+        }
+        if adopted is not None:
+            payload["adopted"] = adopted
+        _save_mat_or_npz(args.out, payload)
+        print(f"saved closed-loop trace -> {args.out}")
+
+
+def _save_mat_or_npz(path, payload):
+    import os
+
+    import numpy as np
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if path.endswith(".mat"):
+        from scipy.io import savemat
+
+        savemat(path, payload)
+    else:
+        np.savez(path, **payload)
+
+
 def build_parser():
     ap = argparse.ArgumentParser(prog="legged_gym_dev_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -346,6 +578,33 @@ def build_parser():
     tt.add_argument("--out", default="",
                     help="the port's tube-model file (torch.save)")
     tt.set_defaults(fn=cmd_train_tube)
+
+    for name, fn in (("plan", cmd_plan), ("mpc", cmd_mpc)):
+        s = sub.add_parser(name)
+        common(s)
+        s.add_argument("--problem", default="gap",
+                       choices=["gap", "right", "right_wide"])
+        s.add_argument("--tube-dyn", default="l1",
+                       choices=["l1", "l2", "l1_rolling", "l2_rolling",
+                                "NN_oneshot"])
+        s.add_argument("--tube-model", default="",
+                       help="the port's tube-model file from `train-tube "
+                            "--oneshot --out` (required for --tube-dyn "
+                            "NN_oneshot; its H_fwd must equal --N and "
+                            "H_rev --H-rev)")
+        s.add_argument("--N", type=int, default=50)
+        s.add_argument("--H-rev", type=int, default=10)
+        s.add_argument("--out", default="",
+                       help=".mat (scipy.io.savemat) or .npz output")
+        s.add_argument("--generic", action="store_true",
+                       help="the dense generic AL solver instead of the "
+                            "staged block-tridiagonal path (also taken by "
+                            "the rolling tubes, which have no staged form)")
+        if name == "plan":
+            s.add_argument("--nominal", action="store_true")
+        else:
+            s.add_argument("--H", type=int, default=75)
+        s.set_defaults(fn=fn)
     return ap
 
 

@@ -1,4 +1,15 @@
-from .rom import ROM_REGISTRY, DoubleInt2D, RomDynamics, SingleInt2D, make_rom
+from .rom import (
+    ROM_REGISTRY,
+    DoubleInt2D,
+    ExtendedLateralUnicycle,
+    ExtendedUnicycle,
+    LateralUnicycle,
+    RomDynamics,
+    SingleInt2D,
+    Unicycle,
+    make_rom,
+)
 
 __all__ = ["ROM_REGISTRY", "RomDynamics", "SingleInt2D", "DoubleInt2D",
-           "make_rom"]
+           "Unicycle", "LateralUnicycle", "ExtendedUnicycle",
+           "ExtendedLateralUnicycle", "make_rom"]

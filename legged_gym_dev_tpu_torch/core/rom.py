@@ -1,11 +1,10 @@
 """Reduced-order-model (ROM) dynamics as batched PyTorch functions.
 
-Counterpart of ``legged_gym_dev_tpu/core/rom.py``. Ported: the base class,
-``SingleInt2D`` (the tube-MPC plan ROM) and ``DoubleInt2D`` (the closed-loop
-plant), with the array form (``f``, ``proj_z``, ``clip_v_z``) and the entry
-form (``f_entries``, ``f_jac_entries``) the staged solver uses. The other
-four ROMs of the JAX package are not ported yet: ``make_rom`` raises
-``NotImplementedError`` for them.
+Counterpart of ``legged_gym_dev_tpu/core/rom.py``: the base class and all
+six ROMs of the zoo (``SingleInt2D``, the tube-MPC plan ROM;
+``DoubleInt2D``, the closed-loop plant; the unicycle family), each with
+the array form (``f``, ``proj_z``, ``des_pose_vel``, ``clip_v_z``) and the
+entry form (``f_entries``, ``f_jac_entries``) the staged solver uses.
 
 One ROM is shared by a whole scenario batch: ``dt`` is a Python float (held
 exactly at its float32 value, as the JAX leaf is float32) and the bounds are
@@ -20,6 +19,7 @@ import numpy as np
 import torch
 
 from ..utils.runtime import resolve_device
+from .maths import quat_to_euler_xyz, yaw2rot
 
 
 @dataclass(frozen=True)
@@ -57,6 +57,18 @@ class RomDynamics:
 
     def proj_z(self, x):
         raise NotImplementedError
+
+    def des_pose_vel(self, z, v):
+        """Desired (x, y, yaw) pose and (vx, vy, yawdot) velocity, (..., 3)
+        each."""
+        raise NotImplementedError
+
+    def _mask(self, *flags) -> torch.Tensor:
+        return torch.tensor(flags, dtype=torch.bool, device=self.z_min.device)
+
+    def _weights(self, *values) -> torch.Tensor:
+        return torch.tensor(values, dtype=torch.float32,
+                            device=self.z_min.device)
 
     @property
     def vel_inds(self) -> torch.Tensor:
@@ -99,9 +111,14 @@ class SingleInt2D(RomDynamics):
     def proj_z(self, x):
         return x[..., :2]
 
+    def des_pose_vel(self, z, v):
+        yaw = torch.atan2(v[..., 1], v[..., 0])
+        pose = torch.cat([z, yaw[..., None]], dim=-1)
+        vel = torch.cat([v, torch.zeros_like(v[..., :1])], dim=-1)
+        return pose, vel
+
     def weighting_vector(self, w):
-        return torch.tensor([w.position, w.position], dtype=torch.float32,
-                            device=self.z_min.device)
+        return self._weights(w.position, w.position)
 
     def f_entries(self, z_e, v_e):
         return [z_e[0] + self.dt * v_e[0], z_e[1] + self.dt * v_e[1]]
@@ -126,14 +143,18 @@ class DoubleInt2D(RomDynamics):
     def proj_z(self, x):
         return torch.cat([x[..., :2], x[..., 7:9]], dim=-1)
 
+    def des_pose_vel(self, z, v):
+        yaw = torch.atan2(z[..., 3], z[..., 2])
+        pose = torch.cat([z[..., :2], yaw[..., None]], dim=-1)
+        vel = torch.cat([z[..., 2:], torch.zeros_like(z[..., :1])], dim=-1)
+        return pose, vel
+
     @property
     def vel_inds(self):
-        return torch.tensor([False, False, True, True],
-                            device=self.z_min.device)
+        return self._mask(False, False, True, True)
 
     def weighting_vector(self, w):
-        return torch.tensor([w.position, w.position, w.velocity, w.velocity],
-                            dtype=torch.float32, device=self.z_min.device)
+        return self._weights(w.position, w.position, w.velocity, w.velocity)
 
     def compute_state_dependent_input_bounds(self, z):
         """Shrink the accel bounds so velocities stay inside [z_min, z_max]."""
@@ -156,20 +177,227 @@ class DoubleInt2D(RomDynamics):
         return A, B
 
 
-ROM_REGISTRY = {"SingleInt2D": SingleInt2D, "DoubleInt2D": DoubleInt2D}
-_NOT_PORTED = ("Unicycle", "LateralUnicycle", "ExtendedUnicycle",
-               "ExtendedLateralUnicycle")
+@dataclass(frozen=True)
+class Unicycle(RomDynamics):
+    """Unicycle: z=[x,y,th], v=[v,om]."""
+
+    n: ClassVar[int] = 3
+    m: ClassVar[int] = 2
+
+    def f(self, z, v):
+        dx = v[..., 0] * torch.cos(z[..., 2])
+        dy = v[..., 0] * torch.sin(z[..., 2])
+        dth = v[..., 1]
+        return z + self.dt * torch.stack([dx, dy, dth], dim=-1)
+
+    def proj_z(self, x):
+        yaw = quat_to_euler_xyz(x[..., 3:7])[..., 2]
+        return torch.cat([x[..., :2], yaw[..., None]], dim=-1)
+
+    def des_pose_vel(self, z, v):
+        vx = v[..., 0] * torch.cos(z[..., 2])
+        vy = v[..., 0] * torch.sin(z[..., 2])
+        return z[..., :3], torch.stack([vx, vy, v[..., 1]], dim=-1)
+
+    def weighting_vector(self, w):
+        return self._weights(w.position, w.position, w.orientation)
+
+    def f_entries(self, z_e, v_e):
+        dt = self.dt
+        c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
+        return [z_e[0] + dt * v_e[0] * c, z_e[1] + dt * v_e[0] * s,
+                z_e[2] + dt * v_e[1]]
+
+    def f_jac_entries(self, z_e, v_e):
+        dt = self.dt
+        c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
+        A = [[1.0, 0.0, -dt * v_e[0] * s],
+             [0.0, 1.0, dt * v_e[0] * c],
+             [0.0, 0.0, 1.0]]
+        B = [[dt * c, 0.0], [dt * s, 0.0], [0.0, dt]]
+        return A, B
+
+
+@dataclass(frozen=True)
+class LateralUnicycle(Unicycle):
+    """Unicycle with a lateral slip input: v=[v, v_perp, om]."""
+
+    n: ClassVar[int] = 3
+    m: ClassVar[int] = 3
+
+    def f(self, z, v):
+        c, s = torch.cos(z[..., 2]), torch.sin(z[..., 2])
+        dx = v[..., 0] * c - v[..., 1] * s
+        dy = v[..., 0] * s + v[..., 1] * c
+        return z + self.dt * torch.stack([dx, dy, v[..., 2]], dim=-1)
+
+    def des_pose_vel(self, z, v):
+        c, s = torch.cos(z[..., 2]), torch.sin(z[..., 2])
+        vx = v[..., 0] * c - v[..., 1] * s
+        vy = v[..., 0] * s + v[..., 1] * c
+        # yawdot from v[..., 1], as the JAX package and the reference
+        return z[..., :3], torch.stack([vx, vy, v[..., 1]], dim=-1)
+
+    def weighting_vector(self, w):
+        return self._weights(w.position, w.position, w.orientation,
+                             w.velocity, w.velocity, w.angular_velocity)
+
+    def f_entries(self, z_e, v_e):
+        dt = self.dt
+        c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
+        return [z_e[0] + dt * (v_e[0] * c - v_e[1] * s),
+                z_e[1] + dt * (v_e[0] * s + v_e[1] * c),
+                z_e[2] + dt * v_e[2]]
+
+    def f_jac_entries(self, z_e, v_e):
+        dt = self.dt
+        c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
+        A = [[1.0, 0.0, dt * (-v_e[0] * s - v_e[1] * c)],
+             [0.0, 1.0, dt * (v_e[0] * c - v_e[1] * s)],
+             [0.0, 0.0, 1.0]]
+        B = [[dt * c, -dt * s, 0.0], [dt * s, dt * c, 0.0], [0.0, 0.0, dt]]
+        return A, B
+
+
+def _local_planar_velocity(x):
+    """Yaw of the 13-dim state's quaternion, and its world x-y velocity in
+    the yaw frame."""
+    yaw = quat_to_euler_xyz(x[..., 3:7])[..., 2]
+    v_local = torch.einsum("...ij,...j->...i", yaw2rot(yaw), x[..., 7:9])
+    return yaw, v_local
+
+
+@dataclass(frozen=True)
+class ExtendedUnicycle(Unicycle):
+    """Unicycle with velocity states: z=[x,y,th,v,om], v=[a,al]."""
+
+    n: ClassVar[int] = 5
+    m: ClassVar[int] = 2
+
+    def f(self, z, v):
+        dx = z[..., 3] * torch.cos(z[..., 2])
+        dy = z[..., 3] * torch.sin(z[..., 2])
+        return z + self.dt * torch.stack(
+            [dx, dy, z[..., 4], v[..., 0], v[..., 1]], dim=-1)
+
+    def proj_z(self, x):
+        yaw, v_local = _local_planar_velocity(x)
+        return torch.cat([x[..., :2], yaw[..., None], v_local[..., :1],
+                          x[..., 12:13]], dim=-1)
+
+    def des_pose_vel(self, z, v):
+        vx = z[..., 3] * torch.cos(z[..., 2])
+        vy = z[..., 3] * torch.sin(z[..., 2])
+        return z[..., :3], torch.stack([vx, vy, z[..., 4]], dim=-1)
+
+    @property
+    def vel_inds(self):
+        return self._mask(False, False, False, True, True)
+
+    def compute_state_dependent_input_bounds(self, z):
+        """Shrink the input bounds so the velocity states stay inside
+        [z_min, z_max]."""
+        v_max_z = torch.minimum(self.v_max,
+                                (self.z_max[3:] - z[..., 3:]) / self.dt)
+        v_min_z = torch.maximum(self.v_min,
+                                (self.z_min[3:] - z[..., 3:]) / self.dt)
+        return v_min_z, v_max_z
+
+    def weighting_vector(self, w):
+        return self._weights(w.position, w.position, w.orientation,
+                             w.velocity, w.angular_velocity)
+
+    def f_entries(self, z_e, v_e):
+        dt = self.dt
+        c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
+        return [z_e[0] + dt * z_e[3] * c, z_e[1] + dt * z_e[3] * s,
+                z_e[2] + dt * z_e[4], z_e[3] + dt * v_e[0],
+                z_e[4] + dt * v_e[1]]
+
+    def f_jac_entries(self, z_e, v_e):
+        dt = self.dt
+        c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
+        A = [[1.0, 0.0, -dt * z_e[3] * s, dt * c, 0.0],
+             [0.0, 1.0, dt * z_e[3] * c, dt * s, 0.0],
+             [0.0, 0.0, 1.0, 0.0, dt],
+             [0.0, 0.0, 0.0, 1.0, 0.0],
+             [0.0, 0.0, 0.0, 0.0, 1.0]]
+        B = [[0.0, 0.0], [0.0, 0.0], [0.0, 0.0], [dt, 0.0], [0.0, dt]]
+        return A, B
+
+
+@dataclass(frozen=True)
+class ExtendedLateralUnicycle(ExtendedUnicycle):
+    """z=[x,y,th,v,v_perp,om], v=[a,a_perp,al]."""
+
+    n: ClassVar[int] = 6
+    m: ClassVar[int] = 3
+
+    def f(self, z, v):
+        c, s = torch.cos(z[..., 2]), torch.sin(z[..., 2])
+        dx = z[..., 3] * c - z[..., 4] * s
+        dy = z[..., 3] * s + z[..., 4] * c
+        return z + self.dt * torch.cat(
+            [torch.stack([dx, dy, z[..., 5]], dim=-1), v], dim=-1)
+
+    def proj_z(self, x):
+        yaw, v_local = _local_planar_velocity(x)
+        return torch.cat([x[..., :2], yaw[..., None], v_local,
+                          x[..., 12:13]], dim=-1)
+
+    def des_pose_vel(self, z, v):
+        c, s = torch.cos(z[..., 2]), torch.sin(z[..., 2])
+        vx = z[..., 3] * c - z[..., 4] * s
+        vy = z[..., 3] * s + z[..., 4] * c
+        return z[..., :3], torch.stack([vx, vy, z[..., 5]], dim=-1)
+
+    @property
+    def vel_inds(self):
+        return self._mask(False, False, False, True, True, True)
+
+    def weighting_vector(self, w):
+        return self._weights(w.position, w.position, w.orientation,
+                             w.velocity, w.velocity, w.angular_velocity)
+
+    def f_entries(self, z_e, v_e):
+        dt = self.dt
+        c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
+        return [z_e[0] + dt * (z_e[3] * c - z_e[4] * s),
+                z_e[1] + dt * (z_e[3] * s + z_e[4] * c),
+                z_e[2] + dt * z_e[5], z_e[3] + dt * v_e[0],
+                z_e[4] + dt * v_e[1], z_e[5] + dt * v_e[2]]
+
+    def f_jac_entries(self, z_e, v_e):
+        dt = self.dt
+        c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
+        A = [[1.0, 0.0, dt * (-z_e[3] * s - z_e[4] * c), dt * c, -dt * s,
+              0.0],
+             [0.0, 1.0, dt * (z_e[3] * c - z_e[4] * s), dt * s, dt * c, 0.0],
+             [0.0, 0.0, 1.0, 0.0, 0.0, dt],
+             [0.0, 0.0, 0.0, 1.0, 0.0, 0.0],
+             [0.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+             [0.0, 0.0, 0.0, 0.0, 0.0, 1.0]]
+        B = [[0.0, 0.0, 0.0], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0],
+             [dt, 0.0, 0.0], [0.0, dt, 0.0], [0.0, 0.0, dt]]
+        return A, B
+
+
+ROM_REGISTRY = {
+    "SingleInt2D": SingleInt2D,
+    "DoubleInt2D": DoubleInt2D,
+    "Unicycle": Unicycle,
+    "LateralUnicycle": LateralUnicycle,
+    "ExtendedUnicycle": ExtendedUnicycle,
+    "ExtendedLateralUnicycle": ExtendedLateralUnicycle,
+}
 
 
 def make_rom(name: str, dt, z_min, z_max, v_min, v_max,
              device=None) -> RomDynamics:
     """Registry lookup, as ``legged_gym_dev_tpu.core.rom.make_rom``."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"ROM '{name}' is not ported yet")
     try:
         cls = ROM_REGISTRY[name]
     except KeyError:
         raise ValueError(
-            f"Unknown ROM '{name}'. Known: "
-            f"{sorted(ROM_REGISTRY) + sorted(_NOT_PORTED)}") from None
+            f"Unknown ROM '{name}'. Known: {sorted(ROM_REGISTRY)}") from None
     return cls.create(dt, z_min, z_max, v_min, v_max, device=device)

@@ -135,22 +135,31 @@ def compare_tube_models(models: Dict[str, tuple], rollouts: RolloutData,
     return out
 
 
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def evaluate_tube_on_mpc_trace(trace) -> Dict[str, float]:
     """Does the planned tube bound the tracked robot's error along an
     executed closed-loop trace? ``trace`` has ``z``, ``w``, ``pz_x``,
-    ``converged`` and ``viol`` (arrays or tensors); the first step is
-    skipped (w is 0 before the first solve has committed a width)."""
-    z = np.asarray(trace.z)[1:]
-    w = np.asarray(trace.w)[1:]
-    err = np.linalg.norm(np.asarray(trace.pz_x)[1:] - z, axis=-1)
+    ``converged`` and ``viol`` (arrays or tensors), for one scenario
+    (z (H+1, n), as the JAX package's) or batch-leading (z (B, H+1, n), as
+    ``solver.mpc.MPCTrace``); each scenario's first step is skipped (w is
+    0 before the first solve has committed a width) and the statistics
+    pool the rest."""
+    z = _host(trace.z)[..., 1:, :]
+    w = _host(trace.w)[..., 1:]
+    err = np.linalg.norm(_host(trace.pz_x)[..., 1:, :] - z, axis=-1)
     return {
         "coverage": float(np.mean(w >= err)),
         "mean_width": float(w.mean()),
         "mean_error": float(err.mean()),
         "max_error": float(err.max()),
         "mean_margin": float(np.mean(w - err)),
-        "solver_converged_frac": float(np.asarray(trace.converged).mean()),
-        "max_solver_viol": float(np.asarray(trace.viol).max()),
+        "solver_converged_frac": float(_host(trace.converged).mean()),
+        "max_solver_viol": float(_host(trace.viol).max()),
     }
 
 
@@ -159,10 +168,11 @@ def trace_conformal_scale(trace, alpha: float = 0.9,
     """Split-conformal width multiplier on an executed closed-loop trace:
     the finite-sample-corrected alpha-quantile of realized error / width
     over the steps with w > w_min (the pre-first-solve zeros are left
-    out). Compound it onto the model's ``out_scale``."""
-    z = np.asarray(trace.z)
-    w = np.asarray(trace.w).reshape(-1)
-    err = np.linalg.norm(np.asarray(trace.pz_x).reshape(-1, z.shape[-1])
+    out). One scenario's trace or a batch-leading one, whose steps pool.
+    Compound it onto the model's ``out_scale``."""
+    z = _host(trace.z)
+    w = _host(trace.w).reshape(-1)
+    err = np.linalg.norm(_host(trace.pz_x).reshape(-1, z.shape[-1])
                          - z.reshape(-1, z.shape[-1]), axis=-1)
     m = w > w_min
     ratio = err[m] / w[m]

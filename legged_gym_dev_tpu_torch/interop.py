@@ -310,3 +310,17 @@ def tube_mlp_from_numpy(jax_mlp, device=None) -> MLP:
         final_activation=jax_mlp.final_activation,
         out_scale=None if out_scale is None else np.asarray(out_scale),
         device=device)
+
+
+def mpc_trace_from_numpy(jax_trace, device=None):
+    """A JAX ``MPCTrace`` with numpy leaves (one scenario, or vmapped over
+    a batch) as the port's batch-leading ``solver.mpc.MPCTrace`` on
+    ``device``: a single scenario's trace gains a batch axis of 1."""
+    from .solver.mpc import MPCTrace
+
+    dev = resolve_device(device)
+    single = np.ndim(jax_trace.z) == 2
+    return MPCTrace(**{
+        f: torch.as_tensor(np.array(getattr(jax_trace, f))[None] if single
+                           else np.array(getattr(jax_trace, f)), device=dev)
+        for f in MPCTrace._fields})

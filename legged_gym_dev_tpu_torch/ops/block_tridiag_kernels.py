@@ -39,10 +39,12 @@ import torch
 
 from . import _build
 
-SUPPORTED_B = (3, 4, 5, 6, 7, 8)   # block sizes the CUDA source instantiates
-MAX_B = 8                          # kMaxB of the CUDA source
-MAX_FACTOR_ENTRIES = 36 + 64      # kMaxFactorEntries: bt_factor's table
-MAX_ENTRIES = MAX_FACTOR_ENTRIES + 8   # kMaxEntries: bt_solve's table
+# block sizes the CUDA source instantiates: the ROM zoo's staged layouts
+# b = n + 1 + m (5, 6, 7, 8, 10), and 3, 4
+SUPPORTED_B = (3, 4, 5, 6, 7, 8, 10)
+MAX_B = 10                         # kMaxB of the CUDA source
+MAX_FACTOR_ENTRIES = 55 + 100     # kMaxFactorEntries: bt_factor's table
+MAX_ENTRIES = MAX_FACTOR_ENTRIES + MAX_B   # kMaxEntries: bt_solve's table
 _F32 = torch.float32
 
 
@@ -54,13 +56,30 @@ KERNELS = {"bt_solve": BT_SOLVE, "bt_factor": BT_FACTOR,
            "bt_msolve": BT_MSOLVE}
 
 
+# launches per (kernel, block size), beside each kernel's total
+_BY_B: dict = {}
+
+
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+    _BY_B.clear()
 
 
 def launches() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def launches_by_b() -> dict:
+    """{kernel: {b: launches}} since the last ``reset_launches``."""
+    out = {name: {} for name in KERNELS}
+    for (name, b), n in sorted(_BY_B.items()):
+        out[name][b] = n
+    return out
+
+
+def _count(kernel: "_build.Kernel", b: int) -> None:
+    _BY_B[kernel.symbol, b] = _BY_B.get((kernel.symbol, b), 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -321,33 +340,34 @@ def _factor_args(table, rec: torch.Tensor) -> FactorArgs:
     return args
 
 
-def _smem_bytes(symbol: str, *ints) -> int:
-    fn = getattr(_build.load(SOURCE), symbol)
-    fn.argtypes = [ctypes.c_int] * len(ints)
+def launch_shape(kernel: str, S: int, b: int, R: int = 1) -> dict:
+    """The launch shape the CUDA source picks at these shapes: scenarios
+    a block, threads a block and shared memory a block in bytes (-1 if
+    they do not fit on the current card), and bt_solve's and bt_factor's
+    entry stride ES or bt_msolve's columns a block RC."""
+    lib = _build.load(SOURCE)
+    x, y = ctypes.c_int(0), ctypes.c_int(0)
+    ref = ctypes.POINTER(ctypes.c_int)
+    if kernel == "bt_msolve":
+        fn = lib.bt_msolve_shape
+        fn.argtypes = [ctypes.c_int] * 3 + [ref, ref]
+        fn.restype = ctypes.c_int
+        nbytes = fn(S, R, b, ctypes.byref(x), ctypes.byref(y))
+        return dict(teams=y.value, threads=y.value * x.value, RC=x.value,
+                    smem_bytes=nbytes)
+    fn = lib.bt_team_shape
+    fn.argtypes = [ctypes.c_int] * 3 + [ref, ref]
     fn.restype = ctypes.c_int
-    return fn(*ints)
-
-
-def solve_smem_bytes(S: int, b: int) -> int:
-    """Shared memory of one bt_solve block at these shapes, in bytes (-1
-    if one scenario's rows do not fit on the current card)."""
-    return _smem_bytes("bt_solve_smem", S, b)
-
-
-def factor_smem_bytes(S: int, b: int) -> int:
-    """Shared memory of one bt_factor block at these shapes, in bytes (-1
-    if one scenario's rows do not fit on the current card)."""
-    return _smem_bytes("bt_factor_smem", S, b)
-
-
-def msolve_smem_bytes(S: int, R: int, b: int) -> int:
-    """Shared memory of one bt_msolve block at these shapes, in bytes."""
-    return _smem_bytes("bt_msolve_smem", S, R, b)
+    nbytes = fn(S, b, int(kernel == "bt_factor"), ctypes.byref(x),
+                ctypes.byref(y))
+    return dict(teams=x.value, threads=8 * x.value, ES=y.value,
+                smem_bytes=nbytes)
 
 
 def _launch_solve(args: SolveArgs, S: int, B: int, b: int, device):
     """bt_solve on a prepared table; the output view is in ``args``."""
     BT_SOLVE([ctypes.addressof(args)], [S, B, b], device)
+    _count(BT_SOLVE, b)
 
 
 # ---------------------------------------------------------------------------
@@ -450,11 +470,13 @@ def prepare_multirhs_entries(D_full, L_full, rhs_cols, b: int):
 
 def _launch_factor(fargs: FactorArgs, S, B, b, device):
     BT_FACTOR([ctypes.addressof(fargs)], [S, B, b], device)
+    _count(BT_FACTOR, b)
 
 
 def _launch_msolve(rec, rargs: RhsArgs, x, S, B, R, b, device):
     BT_MSOLVE([_ptr(rec), ctypes.addressof(rargs), _ptr(x)], [S, B, R, b],
               device)
+    _count(BT_MSOLVE, b)
 
 
 def block_tridiag_multirhs_entries(D_full, L_full, rhs_cols, b: int):

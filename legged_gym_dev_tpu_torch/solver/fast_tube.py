@@ -23,7 +23,7 @@ from .trajopt import (
     get_tube_warm_start,
     get_warm_start,
 )
-from .tube_dynamics import get_tube_dynamics
+from .tube_dynamics import _abs, get_tube_dynamics
 
 
 class StagedProblem(NamedTuple):
@@ -36,11 +36,6 @@ class StagedProblem(NamedTuple):
     tube_kind: str    # 'l1' | 'l2' | 'nn'
     scaling: float
     track_ref: bool
-
-
-def _abs(x):
-    """|x| whose derivative at 0 is +1, as JAX's (torch.abs gives 0)."""
-    return torch.where(x >= 0, x, -x)
 
 
 # ---------------------------------------------------------------------------

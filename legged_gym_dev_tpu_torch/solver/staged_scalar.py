@@ -21,7 +21,9 @@ makes no host synchronisation: per-scenario convergence and freezing are
 Linear solves (``ALConfig.linsolve``): "pallas" goes to the hand-written
 CUDA kernels of ``ops/block_tridiag_kernels.py`` (their plain versions on
 CPU tensors); "thomas", and "auto" below 128 stages, to
-``factor_solve_entries`` here. Block cyclic reduction ("cr") is not ported.
+``factor_solve_entries`` here; "cr", and "auto" from 128 stages, to the
+block cyclic reduction ``cr_solve_entries`` for the single-RHS solves of
+the l1/l2 tubes (the NN tube's solves take "thomas" then, as in JAX).
 """
 from __future__ import annotations
 
@@ -579,17 +581,163 @@ def factor_solve_entries(D_e, L_e, rhs_e, b):
 # structural zero as 0, and only the lower triangle of D.
 
 
+# ---------------------------------------------------------------------------
+# entry-form block cyclic reduction ("cr")
+# ---------------------------------------------------------------------------
+#
+# Block-Thomas runs 2(S-1) dependent stage steps per solve. Cyclic
+# reduction eliminates the odd-indexed stages level by level:
+# ceil(log2(S)) levels, each a few elementwise ops over a halved stage
+# axis, at 2-3x the operations. Stable for the SPD systems the
+# freeze-masked GN assembly produces.
+
 # "auto" linsolve switches to cyclic reduction at this stage count.
 _CR_AUTO_MIN_S = 128
+
+
+def _slc(x, sl):
+    return 0.0 if _is0(x) else x[..., sl]
+
+
+def _pad_last(x, front, back):
+    if _is0(x) or (front == 0 and back == 0):
+        return x
+    return F.pad(x, (front, back))
+
+
+def _full(x, like):
+    """Entry x (tensor or 0.0) as a tensor of ``like``'s shape."""
+    return torch.zeros_like(like) if _is0(x) else x.expand(like.shape)
+
+
+def _solve_cols_e(c, M, b):
+    """B^{-1} M for a full entry matrix M (columns solved independently)."""
+    R = [[None] * b for _ in range(b)]
+    for j in range(b):
+        col = _chol_solve_e(c, [M[l][j] for l in range(b)], b)
+        for l in range(b):
+            R[l][j] = col[l]
+    return R
+
+
+def _transpose_e(A, b):
+    return [[A[j][i] for j in range(b)] for i in range(b)]
+
+
+def _matmul_e(A, Bm, b):
+    C = [[0.0] * b for _ in range(b)]
+    for i in range(b):
+        for j in range(b):
+            acc = 0.0
+            for l in range(b):
+                acc = _add(acc, _mul(A[i][l], Bm[l][j]))
+            C[i][j] = acc
+    return C
+
+
+def _matvec_e(A, x, b):
+    out = []
+    for i in range(b):
+        acc = 0.0
+        for l in range(b):
+            acc = _add(acc, _mul(A[i][l], x[l]))
+        out.append(acc)
+    return out
+
+
+def cr_solve_entries(D_e, L_e, rhs_e, b):
+    """Solve the symmetric block-tridiagonal system by cyclic reduction.
+
+    The interface of ``factor_solve_entries`` for one right-hand side:
+    ``D_e`` the b x b lower-entry lists of (..., S) diagonal blocks,
+    ``L_e[i][j]`` entry (i, j) of the sub-diagonal block coupling stage
+    k+1 to stage k ((..., S-1) or 0.0), ``rhs_e`` list b of (..., S).
+    Returns the solution as a list b of (..., S).
+    """
+    S = rhs_e[0].shape[-1]
+    if S == 1:
+        c = _chol_e([[D_e[i][j] for j in range(i + 1)] for i in range(b)], b)
+        x = _chol_solve_e(c, list(rhs_e), b)
+        return [_full(v, rhs_e[0]) for v in x]
+
+    S_o, S_e = S // 2, (S + 1) // 2     # odd-stage / even-stage counts
+    n_lo = (S - 1) // 2                 # number of L_odd blocks
+
+    B_ol = [[_slc(D_e[i][j], slice(1, None, 2)) for j in range(i + 1)]
+            for i in range(b)]
+    B_el = [[_slc(D_e[i][j], slice(0, None, 2)) for j in range(i + 1)]
+            for i in range(b)]
+    # A_{2j+1} (odd row 2j+1 <- even col 2j) and A_{2j+2} (even <- odd)
+    A_ev = [[_slc(L_e[i][j], slice(0, None, 2)) for j in range(b)]
+            for i in range(b)]
+    A_od = [[_slc(L_e[i][j], slice(1, None, 2)) for j in range(b)]
+            for i in range(b)]
+    r_o = [_slc(r, slice(1, None, 2)) for r in rhs_e]
+    r_ev = [_slc(r, slice(0, None, 2)) for r in rhs_e]
+
+    c_o = _chol_e(B_ol, b)
+    V = _solve_cols_e(c_o, A_ev, b)                 # B_o^{-1} A_{2j+1}
+    y = [_full(v, r_o[0]) for v in _chol_solve_e(c_o, r_o, b)]
+
+    c_ot = [[_slc(c_o[i][j], slice(0, n_lo)) for j in range(i + 1)]
+            for i in range(b)]
+    U = _solve_cols_e(c_ot, _transpose_e(A_od, b), b)  # B_o^{-1} A_{2j+2}^T
+
+    # Schur terms onto the even stages
+    T_r = _matmul_e(_transpose_e(A_ev, b), V, b)    # A^T B^{-1} A  at i=j
+    A_odt = [[_slc(A_od[i][j], slice(0, n_lo)) for j in range(b)]
+             for i in range(b)]
+    T_l = _matmul_e(A_odt, U, b)                    # A B^{-1} A^T at i=j+1
+    V_t = [[_slc(V[i][j], slice(0, n_lo)) for j in range(b)]
+           for i in range(b)]
+    A_new = _matmul_e(A_odt, V_t, b)                # couples even i, i-1
+    A_new = [[0.0 if _is0(A_new[i][j]) else -A_new[i][j] for j in range(b)]
+             for i in range(b)]
+
+    D_new = [[None] * (i + 1) for i in range(b)]
+    for i in range(b):
+        for j in range(i + 1):
+            acc = B_el[i][j]
+            acc = _sub(acc, _pad_last(T_r[i][j], 0, S_e - S_o))
+            acc = _sub(acc, _pad_last(T_l[i][j], 1, S_e - 1 - n_lo))
+            D_new[i][j] = _full(acc, r_ev[0])
+
+    t1 = _matvec_e(A_odt, [_slc(v, slice(0, n_lo)) for v in y], b)
+    t2 = _matvec_e(_transpose_e(A_ev, b), y, b)
+    r_new = []
+    for i in range(b):
+        acc = r_ev[i]
+        acc = _sub(acc, _pad_last(t1[i], 1, S_e - 1 - n_lo))
+        acc = _sub(acc, _pad_last(t2[i], 0, S_e - S_o))
+        r_new.append(_full(acc, r_ev[0]))
+
+    x_even = cr_solve_entries(D_new, A_new, r_new, b)
+
+    # back-substitute the odd stages
+    xe_a = [x[..., :S_o] for x in x_even]
+    xe_b = [_pad_last(x[..., 1:1 + n_lo], 0, S_o - n_lo) for x in x_even]
+    corr_a = _matvec_e(V, xe_a, b)
+    U_p = [[_pad_last(U[i][j], 0, S_o - n_lo) for j in range(b)]
+           for i in range(b)]
+    corr_b = _matvec_e(U_p, xe_b, b)
+    x_odd = [_full(_sub(_sub(y[i], corr_a[i]), corr_b[i]), r_o[0])
+             for i in range(b)]
+
+    # interleave even/odd back to stage order
+    out = []
+    for i in range(b):
+        pair = torch.stack([x_even[i][..., :S_o], x_odd[i]], dim=-1)
+        flat = pair.reshape(pair.shape[:-2] + (2 * S_o,))
+        if S_e > S_o:
+            flat = torch.cat([flat, x_even[i][..., -1:]], dim=-1)
+        out.append(flat)
+    return out
 
 
 def _linsolve(cfg, S):
     linsolve = cfg.linsolve
     if linsolve == "auto":
         linsolve = "cr" if S >= _CR_AUTO_MIN_S else "thomas"
-    if linsolve == "cr":
-        raise NotImplementedError(
-            "linsolve='cr' (block cyclic reduction) is not ported yet")
     return linsolve
 
 
@@ -720,9 +868,13 @@ def _solve_staged_scalar_impl(sp, p, u0, lb_u, ub_u, cfg, lam0, mu0,
             return block_tridiag_multirhs_entries(Dm, Lm, rhs_m, b)
         return factor_solve_entries(Dm, Lm, rhs_m, b)
 
-    def solve1(Dm, Lm, rhs):
+    def solve1(Dm, Lm, rhs, cr=False):
+        """One right-hand side; ``cr``: cyclic reduction may take it (the
+        l1/l2 step, as in JAX)."""
         if linsolve == "pallas":
             return block_tridiag_solve_entries(Dm, Lm, rhs, b)
+        if cr and linsolve == "cr":
+            return cr_solve_entries(Dm, Lm, rhs, b)
         return factor_solve_entries(Dm, Lm, rhs, b)
 
     def capacitance(Um, Ru):
@@ -795,7 +947,7 @@ def _solve_staged_scalar_impl(sp, p, u0, lb_u, ub_u, cfg, lam0, mu0,
             d_e = [-(Rg[i] - (Ru[i] @ y_c[:, :, None])[..., 0])
                    for i in range(b)]
         else:
-            d_e = solve1(Dm, Lm, [-g for g in gf])
+            d_e = solve1(Dm, Lm, [-g for g in gf], cr=True)
         d_e = [torch.where(fm[i] > 0.0, d_e[i], 0.0) for i in range(b)]
 
         dir_deriv = 0.0

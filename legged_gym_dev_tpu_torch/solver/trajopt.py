@@ -1,8 +1,16 @@
-"""Tube trajectory-optimization problem data and warm starts, batch-leading.
+"""Tube trajectory-optimization problem assembly and solve entry points,
+batch-leading.
 
 Counterpart of ``legged_gym_dev_tpu/solver/trajopt.py``: ``PROBLEM_DICT``,
-``TrajOptParams``, the warm starts and ``TrajOptSolution``. The generic
-dense solve drivers (``solve_tube``, ``solve_nominal``) are not ported yet.
+``TrajOptParams``, packing and bounds, the NLP functions
+(``build_nlp_fns``), the warm starts and the generic dense solves
+(``solve_nominal``, ``solve_tube``, ``solve_tube_batched``) on
+``al_solver.solve_al``.
+
+Decision vector layout (one row per scenario):
+    x = [ z.flatten()   ((N+1)*n, row-major)
+          v.flatten()   (N*m)
+          w             (N+1, only tube problems) ]
 
 Where the JAX package vmaps over a pytree of per-scenario leaves, here every
 per-scenario field carries a leading batch axis ``B``. Two things are shared
@@ -14,14 +22,14 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..core.rom import RomDynamics
 from ..utils.runtime import resolve_device
-from .al_solver import ALConfig, ALSolution
+from .al_solver import ALConfig, ALSolution, solve_al
 
 # Benchmark problem library (obstacle centers as (K, 2) rows).
 PROBLEM_DICT = {
@@ -141,6 +149,97 @@ class TrajOptParams:
 
 
 # ---------------------------------------------------------------------------
+# Packing and bounds
+# ---------------------------------------------------------------------------
+
+def pack_x(z, v, w=None):
+    """(B, N+1, n), (B, N, m)[, (B, N+1)] -> x (B, D)."""
+    B = z.shape[0]
+    parts = [z.reshape(B, -1), v.reshape(B, -1)]
+    if w is not None:
+        parts.append(w.reshape(B, -1))
+    return torch.cat(parts, dim=-1)
+
+
+def unpack_x(x, N, n, m, with_w):
+    """x (B, D) -> z (B, N+1, n), v (B, N, m), w (B, N+1) or None."""
+    B = x.shape[0]
+    nz, nv = (N + 1) * n, N * m
+    z = x[:, :nz].reshape(B, N + 1, n)
+    v = x[:, nz:nz + nv].reshape(B, N, m)
+    w = x[:, nz + nv:] if with_w else None
+    return z, v, w
+
+
+def make_bounds(p: TrajOptParams, N: int, with_w: bool):
+    """Box bounds (B, D) from the ROM's state and input limits and the
+    tube-width cap."""
+    B, rom = p.batch_size, p.rom
+    lb = [rom.z_min.repeat(N + 1), rom.v_min.repeat(N)]
+    ub = [rom.z_max.repeat(N + 1), rom.v_max.repeat(N)]
+    lb = torch.cat(lb).expand(B, -1)
+    ub = torch.cat(ub).expand(B, -1)
+    if with_w:
+        lb = torch.cat([lb, torch.zeros(B, N + 1, device=p.device)], dim=-1)
+        ub = torch.cat([ub, p.w_max[:, None].expand(B, N + 1)], dim=-1)
+    return lb, ub
+
+
+# ---------------------------------------------------------------------------
+# NLP functions
+# ---------------------------------------------------------------------------
+
+def build_nlp_fns(n: int, m: int, N: int, with_tube: bool,
+                  tube_fn: Optional[Callable] = None, track_ref: bool = False):
+    """Batch-leading (r_fn, h_fn, g_fn) of the (tube) trajopt NLP.
+
+    Objective: quadratic state/input cost toward the goal (or the
+    reference, ``track_ref``) plus Qw w^2. Equalities: dynamics, the
+    initial condition's position dims and the tube-width dynamics.
+    Inequalities: tube-inflated circular obstacle avoidance.
+    """
+
+    def r_fn(x, p: TrajOptParams):
+        B = x.shape[0]
+        z, v, w = unpack_x(x, N, n, m, with_tube)
+        if track_ref:
+            z_goal, v_goal = p.z_ref, p.v_ref
+        else:
+            z_goal = p.zf[:, None, :].expand(B, N + 1, n)
+            v_goal = torch.zeros_like(v)
+        r_state = (z[:, :-1] - z_goal[:, :-1]) @ p.Lq
+        r_term = ((z[:, -1:] - z_goal[:, -1:]) @ p.Lqf)[:, 0]
+        r_input = (v - v_goal) @ p.Lr
+        parts = [r_state.reshape(B, -1), r_term, r_input.reshape(B, -1)]
+        if with_tube:
+            parts.append(p.sqrt_qw[:, None] * w)
+        return torch.cat(parts, dim=-1)
+
+    def h_fn(x, p: TrajOptParams):
+        B = x.shape[0]
+        z, v, w = unpack_x(x, N, n, m, with_tube)
+        h_dyn = (p.rom.f(z[:, :-1], v) - z[:, 1:]).reshape(B, -1)
+        h_ic = z[:, 0, :2] - p.z0[:, :2]
+        parts = [h_dyn, h_ic]
+        if with_tube:
+            fw = tube_fn(z, v, w, p.e_hist, p.v_prev, p.tube_params)
+            parts.append(fw - w[:, 1:])
+        return torch.cat(parts, dim=-1)
+
+    def g_fn(x, p: TrajOptParams):
+        B = x.shape[0]
+        z, v, w = unpack_x(x, N, n, m, with_tube)
+        d = z[:, :, None, :2] - p.obs_c[:, None, :, :]     # (B, N+1, K, 2)
+        dist_sq = torch.sum(d * d, dim=-1)                 # (B, N+1, K)
+        radius = p.obs_r[:, None, :]
+        if with_tube:
+            radius = radius + w[:, :, None]
+        return (dist_sq - radius * radius).reshape(B, -1)
+
+    return r_fn, h_fn, g_fn
+
+
+# ---------------------------------------------------------------------------
 # Warm starts
 # ---------------------------------------------------------------------------
 
@@ -163,9 +262,10 @@ def warm_start_constant(point, N, m):
 
 
 def get_warm_start(kind: str, p: TrajOptParams, N: int,
-                   cfg: ALConfig = ALConfig()):
-    """'start' | 'goal' | 'interpolate'. The generic-solver 'nominal' warm
-    start is not ported (``fast_tube.solve_tube_fast`` has its own)."""
+                   cfg: ALConfig = ALConfig(),
+                   nominal_ws: str = "interpolate"):
+    """'start' | 'goal' | 'interpolate' | 'nominal' (the generic nominal
+    solve from ``nominal_ws``, on ``p``'s device)."""
     m = p.rom.m
     if kind == "start":
         return warm_start_constant(p.z0, N, m)
@@ -174,8 +274,9 @@ def get_warm_start(kind: str, p: TrajOptParams, N: int,
     if kind == "interpolate":
         return warm_start_interpolate(p.z0, p.zf, N, p.rom.dt, m=m)
     if kind == "nominal":
-        raise NotImplementedError(
-            "the generic-solver 'nominal' warm start is not ported")
+        z, v, _ = solve_nominal(p, N, cfg=cfg, warm_start=nominal_ws,
+                                device=p.device)
+        return z, v
     raise ValueError(f"Warm start '{kind}' not implemented")
 
 
@@ -195,3 +296,65 @@ class TrajOptSolution(NamedTuple):
     v: torch.Tensor             # (B, N, m)
     w: Optional[torch.Tensor]   # (B, N+1)
     sol: ALSolution
+
+
+# ---------------------------------------------------------------------------
+# Generic (dense) solves
+# ---------------------------------------------------------------------------
+
+def solve_nominal(p: TrajOptParams, N: int, cfg: ALConfig = ALConfig(),
+                  warm_start: str = "interpolate", x_init=None,
+                  device=None) -> tuple:
+    """Nominal (no-tube) trajectory optimization of the batch on
+    ``device`` (None = the CUDA card). Returns (z, v, ALSolution)."""
+    p = p.to(resolve_device(device))
+    n, m = p.rom.n, p.rom.m
+    r_fn, h_fn, g_fn = build_nlp_fns(n, m, N, with_tube=False)
+    if x_init is None:
+        z_init, v_init = get_warm_start(warm_start, p, N, cfg)
+        x_init = pack_x(z_init, v_init)
+    lb, ub = make_bounds(p, N, with_w=False)
+    sol = solve_al(r_fn, h_fn, g_fn, x_init, p, lb, ub, cfg,
+                   device=p.device)
+    z, v, _ = unpack_x(sol.x, N, n, m, False)
+    return z, v, sol
+
+
+def solve_tube(p: TrajOptParams, tube_fn: Callable, N: int, H_rev: int,
+               cfg: ALConfig = ALConfig(), warm_start: str = "start",
+               nominal_ws: str = "interpolate", tube_ws="evaluate",
+               track_warm: bool = False, x_init=None, lam0=None, mu0=None,
+               return_trace: bool = False, device=None):
+    """Tube trajectory optimization of the batch on ``device`` (None = the
+    CUDA card). Returns a TrajOptSolution (plus the per-outer trace dict
+    with ``return_trace``, see ``debug.trace_to_csv``).
+
+    ``track_warm`` makes the objective track the warm-start trajectory
+    instead of the goal point.
+    """
+    p = p.to(resolve_device(device))
+    n, m = p.rom.n, p.rom.m
+    if x_init is None:
+        z_init, v_init = get_warm_start(warm_start, p, N, cfg,
+                                        nominal_ws=nominal_ws)
+        w_init = get_tube_warm_start(tube_ws, tube_fn, z_init, v_init, p, N)
+        x_init = pack_x(z_init, v_init, w_init)
+        if track_warm:
+            p = p.replace(z_ref=z_init, v_ref=v_init)
+    r_fn, h_fn, g_fn = build_nlp_fns(n, m, N, with_tube=True,
+                                     tube_fn=tube_fn, track_ref=track_warm)
+    lb, ub = make_bounds(p, N, with_w=True)
+    out = solve_al(r_fn, h_fn, g_fn, x_init, p, lb, ub, cfg, lam0=lam0,
+                   mu0=mu0, return_trace=return_trace, device=p.device)
+    sol, trace = out if return_trace else (out, None)
+    z, v, w = unpack_x(sol.x, N, n, m, True)
+    res = TrajOptSolution(z=z, v=v, w=w, sol=sol)
+    return (res, trace) if return_trace else res
+
+
+def solve_tube_batched(p_batch: TrajOptParams, tube_fn, N, H_rev,
+                       cfg: ALConfig = ALConfig(), device=None,
+                       **kw) -> TrajOptSolution:
+    """The JAX package's vmap over the scenario batch; here ``solve_tube``
+    takes the batch already."""
+    return solve_tube(p_batch, tube_fn, N, H_rev, cfg, device=device, **kw)

@@ -63,10 +63,10 @@ OUT = ROOT / "build" / "bt_variants"
 
 
 def only_b5(src):
-    one = "#define LGDT_FOR_EACH_B(X) X(3) X(4) X(5) X(6) X(7) X(8)"
-    if one not in src:
+    one = re.search(r"#define LGDT_FOR_EACH_B\(X\)[^\n]*", src)
+    if one is None:
         raise RuntimeError("LGDT_FOR_EACH_B not found")
-    return src.replace(one, "#define LGDT_FOR_EACH_B(X) X(5)")
+    return src.replace(one.group(0), "#define LGDT_FOR_EACH_B(X) X(5)")
 
 
 def variants(baseline=None):

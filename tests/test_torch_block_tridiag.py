@@ -27,9 +27,12 @@ from tests.test_torch_kernels_cuda import entry_lists, make_systems
 
 ATOL = 3e-5
 SHAPES = [(8, 12, 5), (16, 51, 5), (4, 6, 3)]
+# the entry form (the solver's) also at every other staged block size of
+# the ROM zoo; the array form is the same kernel behind another table
+ZOO_SHAPES = [(4, 6, 6), (4, 6, 7), (4, 6, 8), (4, 7, 10)]
 
 
-@pytest.mark.parametrize("B,S,b", SHAPES)
+@pytest.mark.parametrize("B,S,b", SHAPES + ZOO_SHAPES)
 def test_entries_plain_matches_pallas(B, S, b):
     D, L, rhs = make_systems(B, S, b, seed=B)
     Dj, Lj = entry_lists(D, L, jnp.asarray)

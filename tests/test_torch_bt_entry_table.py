@@ -62,7 +62,7 @@ def tensors_of(*lists):
     return out
 
 
-@pytest.mark.parametrize("b", [3, 5, 8])
+@pytest.mark.parametrize("b", [3, 5, 8, 10])
 @pytest.mark.parametrize("B,S", [(6, 7), (3, 1), (5, 51)])
 def test_solve_table_matches_stage_major_stack(b, B, S):
     """special_entries needs b >= 4; b = 3 takes dense entries."""
@@ -115,7 +115,7 @@ def test_shared_and_expanded_entries_point_into_one_storage():
     assert table[15 + 25 + 1] == (0, 0, 0)          # rhs[1]: zero
 
 
-@pytest.mark.parametrize("b", [3, 5, 8])
+@pytest.mark.parametrize("b", [3, 5, 8, 10])
 def test_array_table_matches_stage_major_stack(b):
     """The array form's table over (B, S, b, b) strides, here column-major
     blocks and a slice of a wider tensor, against the permuted copies the
@@ -182,7 +182,7 @@ def test_entry_views_reject_what_the_kernel_cannot_read():
         btk.entry_views([torch.zeros(3, 3)], shape, CPU)
 
 
-@pytest.mark.parametrize("b", [3, 5, 8])
+@pytest.mark.parametrize("b", [3, 5, 8, 10])
 @pytest.mark.parametrize("part", ["factor_table", "records"])
 def test_factor_tables_match_the_stage_major_stack(part, b):
     """bt_factor reads D and L in place and writes per-stage records that

@@ -96,7 +96,8 @@ def rel(x, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,b", SMALL + [(2048, 51, 5), (1000, 51, 5)])
+@pytest.mark.parametrize("B,S,b", SMALL + [(2048, 51, 5), (1000, 51, 5),
+                                     (1024, 201, 5), (100, 201, 10)])
 def test_bt_solve_matches_plain_on_card(card, B, S, b):
     """bt_solve through the entry-form and the array-form wrappers."""
     D, L, rhs = make_systems(B, S, b, seed=B)
@@ -177,7 +178,7 @@ def test_bt_factor_records_match_plain_on_card(card, b, B, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [4, 5, 8])
+@pytest.mark.parametrize("b", [4, 5, 8, 10])
 def test_bt_factor_entry_table_cases_on_card(card, b):
     """bt_factor's records from entry lists with structural zeros (null
     pointers), a tensor shared between D[1][0] and D[0][1], and entries

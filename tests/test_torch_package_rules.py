@@ -1,9 +1,11 @@
 """Rules of the PyTorch/CUDA port that hold for every file of it.
 
 - No file under ``legged_gym_dev_tpu_torch/``, nor ``chip_smoke.py`` nor
-  the card tests (``tests/test_torch_kernels_cuda.py``), imports ``jax``,
-  ``flax`` or the JAX package (an AST scan of every ``import`` and
-  ``from ... import``, relative imports resolved).
+  the files it loads by path (the card tests
+  ``tests/test_torch_kernels_cuda.py``, the test robots, the goldens'
+  runner ``tests/test_torch_goldens.py``), imports ``jax``, ``flax`` or
+  the JAX package (an AST scan of every ``import`` and ``from ...
+  import``, relative imports resolved).
 - Entry points called without ``device`` mean the CUDA card: on a machine
   without one they raise instead of running on the CPU.
 """
@@ -39,7 +41,8 @@ def _port_files():
     machine without JAX."""
     return sorted(PACKAGE.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py",
-        ROOT / "tests" / "torch_robot_cases.py"]
+        ROOT / "tests" / "torch_robot_cases.py",
+        ROOT / "tests" / "test_torch_goldens.py"]
 
 
 def _imported_modules(path):
@@ -233,3 +236,69 @@ def test_tube_entry_points_raise_without_card(monkeypatch, tmp_path):
               "--episode-length-s", "1.0", "--out", str(npz)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["train-tube", "--data", str(npz), "--epochs", "1"])
+
+
+def test_scan_sees_the_planning_slice():
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for needed in ("legged_gym_dev_tpu_torch/solver/al_solver.py",
+                   "legged_gym_dev_tpu_torch/solver/mpc.py",
+                   "legged_gym_dev_tpu_torch/solver/bucketed.py",
+                   "legged_gym_dev_tpu_torch/solver/debug.py",
+                   "legged_gym_dev_tpu_torch/solver/tube_dynamics.py",
+                   "legged_gym_dev_tpu_torch/cli.py",
+                   "tests/test_torch_goldens.py"):
+        assert needed in files
+    assert ("legged_gym_dev_tpu_torch.solver.al_solver"
+            in _imported_modules(PACKAGE / "solver" / "mpc.py"))
+
+
+def test_planning_entry_points_raise_without_card(monkeypatch, tmp_path):
+    """The planning slice's entry points (the generic solver, its solves,
+    the closed loop, the bucketed solve, ``cli plan`` / ``cli mpc``
+    without ``--cpu``) called without ``device`` raise on a machine with
+    no card."""
+    from legged_gym_dev_tpu_torch import cli
+    from legged_gym_dev_tpu_torch.solver import (
+        build_nlp_fns,
+        get_tube_dynamics,
+        make_bounds,
+        pack_x,
+        solve_al,
+        solve_nominal,
+        solve_tube,
+        solve_tube_batched,
+    )
+    from legged_gym_dev_tpu_torch.solver.bucketed import (
+        solve_tube_fast_bucketed,
+    )
+    from legged_gym_dev_tpu_torch.solver.mpc import (
+        MPCConfig,
+        closed_loop_tube_mpc,
+    )
+
+    _no_card(monkeypatch)
+    N = 6
+    p = torch_params(gap_case(2, N, 4, "l1"))
+    tube = get_tube_dynamics("l1", N)
+    one = ALConfig(outer_iters=1, inner_iters=1)
+    x0 = pack_x(p.z0[:, None].expand(2, N + 1, 2), torch.zeros(2, N, 2),
+                torch.zeros(2, N + 1))
+    calls = [
+        lambda: solve_al(*build_nlp_fns(2, 2, N, True, tube), x0, p,
+                         *make_bounds(p, N, True), one),
+        lambda: solve_nominal(p, N, one),
+        lambda: solve_tube(p, tube, N, 4, one),
+        lambda: solve_tube_batched(p, tube, N, 4, one),
+        lambda: closed_loop_tube_mpc(p, tube, p.rom,
+                                     MPCConfig(H=1, N=N, H_rev=4),
+                                     al_first=one, al_loop=one),
+        lambda: solve_tube_fast_bucketed(p, N, 4, cfg=ALConfig(
+            outer_iters=2, inner_iters=1), phase1_outers=1),
+        lambda: cli.main(["plan", "--N", str(N), "--H-rev", "4"]),
+        lambda: cli.main(["mpc", "--N", str(N), "--H-rev", "4", "--H", "1"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    out = solve_tube(p, tube, N, 4, one, device="cpu")
+    assert out.z.device.type == "cpu"

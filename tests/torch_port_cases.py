@@ -6,6 +6,8 @@ package (broadcast pytree, as bench.py builds it) and to the port
 same problem.
 """
 import numpy as np
+import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +42,18 @@ def mlp_weights(n_in, n_out, units, seed, layers=2):
     ws[-1] = ws[-1] * 0.5
     bs[-1] = bs[-1] * 0.0 - 2.0
     return ws, bs
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for a test module that imports this fixture: the
+    port's solvers launch thousands of small ops, which run faster on one
+    thread than on eight, and six parallel test workers then do not
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def gap_case(B, N, H_rev, tube, seed=0, bench_draws=True):
