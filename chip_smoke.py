@@ -31,7 +31,10 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    (``tests/torch_robot_cases.py``: the 12-joint quadruped, the 4-joint
    robot with a prismatic foot and springs, and the hopper of the
    training path, nj=4, nc=5), random well-conditioned states with
-   per-env DR rows; kernel, plain and bound times;
+   per-env DR rows; kernel, plain and bound times; then each joint count
+   that no robot of the robots phase has (2, 3, 5, 7-9, 11, 13-15, 17-23)
+   on its synthetic chain: held to the plain version, 20 launches alone,
+   its bound;
 8. rl phase (main path of the RL slice): the ROM-trajectory task on the
    quadruped at B=4096 (``make_trajectory_env`` with the ANYmal-C
    settings), a random-weight 512-256-128 ``ActorCritic`` and one PPO
@@ -105,21 +108,45 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    ``tests/torch_robot_cases.py`` (the A1- and Cassie-topology stand-ins,
    the ANYmal-C-topology quadruped, the 10-joint biped for Adam; the LSTM
    actuator net from a TorchScript file drawn from a seed), at B=4096 for
-   one 24-step PPO rollout with K3's launches per joint count (96, 192 for
-   Cassie's 8 substeps, 0 on rough terrain: the reference sends non-flat
-   terrain to the plain substep), finite observations and rewards, env ms
-   per step; the rough tasks on the 10x20 curriculum terrain; then ``cli
-   train`` on the card for 2 iterations each of ``anymal_c_velocity`` and
-   ``cassie_velocity`` (``configs/rl/default.yaml``) and
-   ``anymal_c_rough`` (``configs/rl/anymal_c_rough.yaml``): learning
+   one PPO rollout of ``ROBOT_STEPS`` = 8 env steps (cut from a PPO
+   rollout's 24 to make room for the play phase) with K3's launches per joint count (32,
+   64 for Cassie's 8 substeps, 0 on rough terrain: the reference sends
+   non-flat terrain to the plain substep), finite observations and
+   rewards, env ms per step; the rough tasks on the 10x20 curriculum
+   terrain; then ``cli train`` on the card for 2 iterations each of
+   ``anymal_c_velocity`` and ``cassie_velocity``
+   (``configs/rl/default.yaml``) and ``anymal_c_rough``
+   (``configs/rl/anymal_c_rough.yaml``): learning
    env-steps/s, the rollout/update split, and on rough terrain the plain
    substep's share of an env step; then K3 against its plain version on
    one random step of A1, Cassie, the 10-joint biped and the chains of 1,
    6, 16 and 24 joints, with its time alone and its bound (every K3
    instance is built at the start, one ``nvcc`` each, all at once);
-14. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
-   joint count on rows of their own; ``bt_solve``'s row counts the other
-   block sizes' launches), then, last, ``{"ok": true, "device": {...}}``.
+14. play phase (main path of the play slice): ``OnPolicyRunner.learn``
+   for 2 iterations of ``anymal_c_trajectory`` (the test quadruped,
+   B=4096) and 1 of the recurrent hopper
+   (``hopper_single_int_recurrent.yaml``, the test hopper), checkpoints
+   under ``build/``; ``[play]`` ``cli.play`` on each resumed runner at
+   B=4096 (200 env steps on the quadruped, 20 on the hopper, which plays
+   for its LSTM export) with ``--export`` and ``--mat``: env-steps/s with
+   the per-step host fetch of env 0's signals, exactly steps x decimation
+   K3 launches, the .mat read back with every signal, each export
+   (TorchScript, the ``torch.export`` program; the stateful LSTM module
+   over 10 calls) within 1e-5 of the inference policy; ``[play eval]``
+   ``evaluate_tracking_policy`` with the zero, square and circle fixtures
+   at B=4096 and 400 steps (exactly 400 x decimation launches each);
+   ``[play rom]`` ``cli train`` and ``cli play`` of ``rom_tracking`` at
+   B=4096 as a subprocess, beside ``[dynamics]`` (the autodiff mass
+   matrix, bias forces and contact kinematics against the analytic ones
+   and ``forward_dynamics`` against ``torch.linalg.solve`` at B=4096 on
+   the 12-joint robot, within 1e-4) and ``[array]`` (the array-form staged
+   solver against the entry form, l1, B=256, N=50, 20x10: feasible >=
+   0.98, co-feasible plans within 2e-3 on >= 90%);
+15. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
+   joint count on rows of their own, the instances no robot runs measured
+   on their chains in the substep phase; ``bt_solve``'s row counts the
+   other block sizes' launches), then, last, ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once.
@@ -127,8 +154,9 @@ result line. Without a CUDA device it exits non-zero at once.
 Usage: ``python3 chip_smoke.py`` (all phases), or
 ``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
 debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl,
-train, train_rnn, tube, plan, robots; ``--phases plan`` is the planning
-slice alone, ``--phases robots`` the robots slice).
+train, train_rnn, tube, plan, robots, play; ``--phases plan`` is the
+planning slice alone, ``--phases robots`` the robots slice, ``--phases
+play`` the play slice).
 """
 import argparse
 import concurrent.futures
@@ -143,7 +171,7 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl",
-          "train", "train_rnn", "tube", "plan", "robots")
+          "train", "train_rnn", "tube", "plan", "robots", "play")
 N, H_REV = 50, 10
 B_L1, B_NN = 2048, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -816,8 +844,10 @@ def distinct(t):
 
 def substep_phase(dev):
     """K3 against its plain version at B=4096 on the three test robots;
-    times and the bound. Returns the quadruped's record (the rollout's)
-    with the others nested, and the hopper's (the training path's)."""
+    times and the bound. Then every other joint count's instance on its
+    synthetic chain (those no robot of the robots phase has), 20 launches
+    each. Returns the quadruped's record (the rollout's) with the others
+    nested, the hopper's (the training path's) and the chains' by nj."""
     rec = {robot: substep_record(robot, dev)
            for robot in ("quadruped", "hopper4", "hopper")}
     out = dict(rec["quadruped"])
@@ -825,14 +855,19 @@ def substep_phase(dev):
                       ("max_abs_err", "ms", "kernel_only_ms",
                        "kernel_device_ms", "plain_ms", "bound_ms",
                        "bound_by")}
-    return out, rec["hopper"]
+    chains = {nj: dict(substep_record(f"chain{nj}", dev,
+                                      tag="substep other nj", quick=True),
+                       robot=f"chain{nj}")
+              for nj in OTHER_NJ}
+    return out, rec["hopper"], chains
 
 
-def substep_record(robot, dev, tag="substep"):
+def substep_record(robot, dev, tag="substep", quick=False):
     """K3 on one random single-step case of a test robot at B=4096 with
     per-env DR rows, against its plain version (max relative error <=
     TOL_REL); its time through the wrapper, alone and on the device, the
-    plain version's time and the bound."""
+    plain version's time and the bound. ``quick``: 20 launches alone and
+    one plain call."""
     import torch
 
     from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
@@ -870,9 +905,10 @@ def substep_record(robot, dev, tag="substep"):
         fn(*raw)
 
     ms = time_ms(lambda: sk.substep(sim, st, tau), 20)
-    k_ms = time_ms(launch, 50)
+    k_ms = time_ms(launch, 20 if quick else 50)
     k_dev, *k_q = device_ms(launch)
-    p_ms = time_ms(lambda: sk.substep_plain(sim, st, tau), 3, warmup=1)
+    p_ms = time_ms(lambda: sk.substep_plain(sim, st, tau),
+                   1 if quick else 3, warmup=0 if quick else 1)
     ops = substep_ops_per_env(robot) * B_RL
     # each input read once: the state, the DR values as stored (not as
     # broadcast), the model and schedules; each output written once
@@ -1164,6 +1200,9 @@ ROBOT_TASKS = {
     "anymal_c_rough": ("QUADRUPED_URDF", 235, 0),
     "anymal_c_rough_trajectory": ("QUADRUPED_URDF", 252, 0),
 }
+# env steps of each task's rollout: cut from a PPO rollout's 24 to keep
+# the script's wall with the play phase added
+ROBOT_STEPS = 8
 # the learn iterations of the slice's main path: task -> (config, iters)
 ROBOT_LEARN = {"anymal_c_velocity": ("configs/rl/default.yaml", 2),
                "cassie_velocity": ("configs/rl/default.yaml", 2),
@@ -1173,6 +1212,8 @@ ROBOT_LEARN = {"anymal_c_velocity": ("configs/rl/default.yaml", 2),
 K3_ROBOTS = {"a1": 12, "cassie": 12, "biped10": 10, "chain1": 1,
              "chain6": 6, "chain16": 16, "chain24": 24}
 SUBSTEP_NJ = sorted({4, 12, *K3_ROBOTS.values()})
+# the other instances, measured on their chains in the substep phase
+OTHER_NJ = [nj for nj in range(1, 25) if nj not in SUBSTEP_NJ]
 
 
 def robots_work():
@@ -1197,9 +1238,9 @@ def robots_work():
 
 
 def robot_rollout(task, urdf, dev):
-    """One PPO rollout of 24 env steps of ``task`` at B=4096 with a
-    random-weight 512-256-128 policy; K3's launches zeroed just before and
-    read just after, per joint count."""
+    """One PPO rollout of ``ROBOT_STEPS`` env steps of ``task`` at B=4096
+    with a random-weight 512-256-128 policy; K3's launches zeroed just
+    before and read just after, per joint count."""
     import torch
 
     from legged_gym_dev_tpu_torch.envs import task_registry
@@ -1207,6 +1248,7 @@ def robot_rollout(task, urdf, dev):
     from legged_gym_dev_tpu_torch.rl import PPOConfig, rollout
 
     _, width, want = ROBOT_TASKS[task]
+    want = want * ROBOT_STEPS // 24
     t0 = time.perf_counter()
     env = task_registry.make_env(task, urdf_path=str(urdf), num_envs=B_RL,
                                  device=dev)
@@ -1215,7 +1257,7 @@ def robot_rollout(task, urdf, dev):
     model = rl_policy(env.num_obs, env.num_actions, 11, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    cfg = PPOConfig()
+    cfg = PPOConfig(num_steps=ROBOT_STEPS)
     state, obs = env.reset(gen)
     torch.cuda.synchronize()
     sk.reset_launches()
@@ -1331,11 +1373,12 @@ def robot_learn(task, urdf, work, dev):
 
 
 def robots_phase(dev):
-    """The robots slice's main path: every newly registered task for 24
-    env steps at B=4096, then the learn iterations of anymal_c_velocity,
-    cassie_velocity and anymal_c_rough; then K3 against its plain version
-    on a single step of each K3_ROBOTS robot. Returns the K3 records by
-    robot and the main path's launches by joint count."""
+    """The robots slice's main path: every newly registered task for
+    ``ROBOT_STEPS`` env steps at B=4096, then the learn iterations of
+    anymal_c_velocity, cassie_velocity and anymal_c_rough; then K3 against
+    its plain version on a single step of each K3_ROBOTS robot. Returns
+    the K3 records by robot and the main path's launches by joint
+    count."""
     work, files = robots_work()
     launches = {}
     for task, (const, _, _) in ROBOT_TASKS.items():
@@ -2117,6 +2160,429 @@ def plan_phase(dev, mlp=None):
     return launches, by_b
 
 
+# ---------------------------------------------------------------------------
+# play slice: play, export and evaluate a trained policy; reference forms
+# ---------------------------------------------------------------------------
+
+PLAY_TASK = "anymal_c_trajectory"
+PLAY_STEPS = 200          # [play] env steps at B=4096
+PLAY_RNN_STEPS = 20       # the recurrent hopper's play, for its export
+PLAY_TRAIN_ITERS = 2
+EVAL_STEPS = 400          # evaluate_tracking_policy's default
+ROM_PLAY_STEPS = 100
+B_ARRAY = 256
+RIGID_KEYS = {"reward", "dof_pos", "dof_vel", "base_vel_x", "base_vel_y",
+              "base_vel_z", "base_vel_yaw", "dof_torque", "dof_pos_target",
+              "command_x", "command_y", "command_yaw", "tracking_error",
+              "contact_forces_z"}
+# the hopper has no commands and no default joint positions
+PLAY_KEYS = {PLAY_TASK: RIGID_KEYS, "hopper_trajectory": RIGID_KEYS - {
+    "dof_pos_target", "command_x", "command_y", "command_yaw"}}
+EXPORT_TOL = 1e-5
+
+
+def play_train(work, dev):
+    """``OnPolicyRunner.learn`` on the card for the runs play resumes:
+    ``anymal_c_trajectory`` (the test quadruped, B=4096, 2 iterations) and
+    the recurrent hopper (``hopper_single_int_recurrent.yaml`` through
+    ``cli.make_runner``, the test hopper, 1 iteration); checkpoints under
+    ``work``. K3's launches zeroed before each ``learn`` and read after.
+    Returns {task: (run dir, launches by nj)}."""
+    import torch
+
+    from legged_gym_dev_tpu_torch import cli
+    from legged_gym_dev_tpu_torch.envs import task_registry
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+
+    rc = robot_cases()
+    quad, hopper = work / "quadruped.urdf", work / "hopper.urdf"
+    quad.write_text(rc.QUADRUPED_URDF)
+    hopper.write_text(rc.HOPPER_URDF)
+    env = task_registry.make_env(PLAY_TASK, urdf_path=str(quad),
+                                 num_envs=B_RL, device=dev)
+    runners = {PLAY_TASK: task_registry.make_alg_runner(
+        env, PLAY_TASK, log_root=str(work / "logs"), run_name="train",
+        seed=0)}
+    cfg_path = work / "hopper_rnn.yaml"
+    cfg_path.write_text(
+        f"defaults:\n  - {ROOT / TRAIN_CONFIGS['train_rnn']}\n"
+        f"  - _self_\nenv:\n  urdf_path: {hopper}\n")
+    runner, _ = cli.make_runner(cli.build_parser().parse_args([
+        "train", "--config", str(cfg_path), "--log-root",
+        str(work / "logs"), "--run-name", "train", "--num-envs",
+        str(B_RL), *cpu_flag(dev)]))
+    runners["hopper_trajectory"] = runner
+    out = {}
+    for task, runner in runners.items():
+        iters = PLAY_TRAIN_ITERS if task == PLAY_TASK else 1
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        hist = runner.learn(iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_nj = sk.launches_by_nj()
+        want = iters * runner.cfg.num_steps * runner.env.sim.decimation
+        check(sum(by_nj.values()) == want,
+              f"play train {task}: K3 launches {by_nj} != {want}")
+        for k in ("mean_reward", "loss"):
+            check(bool(np.isfinite(hist[-1][k])),
+                  f"play train {task}: {k} = {hist[-1][k]}")
+        out[task] = (runner.log_dir, by_nj)
+        print("[play train] " + json.dumps(dict(
+            task=task, batch=B_RL, iterations=iters, recurrent=bool(
+                runner.recurrent), learn_wall_s=wall,
+            learn_env_steps_per_s=iters * runner.cfg.num_steps * B_RL / wall,
+            k3_launches=by_nj, mean_reward=hist[-1]["mean_reward"],
+            run_dir=str(runner.log_dir))))
+    return out
+
+
+def resumed(task, urdf, run_dir, work, dev):
+    """The env of ``cli play`` (no observation noise) and a runner
+    resumed from ``run_dir``'s latest checkpoint."""
+    from legged_gym_dev_tpu_torch.envs import task_registry
+
+    env = task_registry.make_env(task, urdf_path=str(urdf), num_envs=B_RL,
+                                 add_noise=False, device=dev)
+    return env, task_registry.make_alg_runner(
+        env, task, log_root=str(work / "logs"), seed=0, resume=True,
+        load_dir=str(run_dir))
+
+
+def export_parity(runner, exports, obs, dev):
+    """max |actions| between the inference policy and each export loaded
+    back on the card: the feed-forward exports on the whole obs batch, the
+    LSTM module over 10 calls on single rows (its state is one row)."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.utils.export import load_policy_exported
+    from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
+
+    policy = runner.get_inference_policy()
+    errs = {}
+    with torch.no_grad(), fp32_matmul():
+        if runner.recurrent:
+            lstm = torch.jit.load(exports["lstm_torchscript"],
+                                  map_location=dev)
+            policy.reset()
+            e = 0.0
+            for i in range(10):
+                x = obs[i:i + 1]
+                e = max(e, float((lstm(x) - policy(x)).abs().max()))
+            errs["lstm_torchscript"] = e
+        else:
+            want = policy(obs)
+            loaded = {"torchscript": torch.jit.load(exports["torchscript"],
+                                                    map_location=dev),
+                      "exported": load_policy_exported(exports["exported"])}
+            for kind, f in loaded.items():
+                errs[kind] = float((f(obs) - want).abs().max())
+    for kind, e in errs.items():
+        check(e <= EXPORT_TOL, f"play export {kind}: max |da| {e}")
+    return errs
+
+
+def play_run(task, urdf, run_dir, steps, work, dev):
+    """``cli.play`` on a resumed runner at B=4096 with ``--export`` and
+    ``--mat`` into ``work``: env-steps/s (with the per-step host fetch of
+    env 0's signals), K3's launches (exactly steps x decimation), the
+    .mat read back, and each export against the inference policy."""
+    import torch
+    from scipy.io import loadmat
+
+    from legged_gym_dev_tpu_torch import cli
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+
+    env, runner = resumed(task, urdf, run_dir, work, dev)
+    tag = task.split("_")[0]
+    mat = work / f"play_{tag}.mat"
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    out = cli.play(env, runner, steps, export=str(work / f"export_{tag}"),
+                   mat=str(mat))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_nj = sk.launches_by_nj()
+    want = steps * env.sim.decimation
+    check(sum(by_nj.values()) == want,
+          f"play {task}: K3 launches {by_nj} != {want}")
+    d = loadmat(str(mat))
+    keys = {k for k in d if not k.startswith("__")} - {"dt"}
+    check(keys == PLAY_KEYS[task], f"play {task}: .mat keys {sorted(keys)}")
+    for k in keys:
+        check(d[k].shape[0] == steps or d[k].shape[-1] == steps,
+              f"play {task}: .mat {k} shape {d[k].shape}")
+        check(bool(np.isfinite(d[k]).all()), f"play {task}: {k} not finite")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    _, obs = env.reset(gen)
+    errs = export_parity(runner, out["exports"], obs, dev)
+    rec = dict(task=task, batch=B_RL, steps=steps, wall_s=wall,
+               rollout_s=out["rollout_s"],
+               env_steps_per_s=steps * B_RL / out["rollout_s"],
+               env_steps_per_s_note="includes the per-step host fetch of "
+               "env 0's signals, as the reference's play does",
+               k3_launches=by_nj, mat_keys=sorted(keys),
+               exports={k: v for k, v in out["exports"].items()},
+               export_max_abs_diff=errs)
+    print("[play] " + json.dumps(rec))
+    return rec, env, runner, by_nj
+
+
+def play_eval(env, runner, dev):
+    """``evaluate_tracking_policy`` with each fixture on the trained
+    quadruped's deterministic policy at B=4096 and the default 400 steps;
+    K3's launches zeroed before each and read after."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.evaluation import evaluate_tracking_policy
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+    from legged_gym_dev_tpu_torch.trajgen import TRAJ_GEN_REGISTRY
+
+    policy = runner.get_inference_policy()
+    total = {}
+    for name in ("ZeroTrajectoryGenerator", "SquareTrajectoryGenerator",
+                 "CircleTrajectoryGenerator"):
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        t0 = time.perf_counter()
+        res = evaluate_tracking_policy(env, policy, TRAJ_GEN_REGISTRY[name],
+                                       steps=EVAL_STEPS)
+        wall = time.perf_counter() - t0
+        by_nj = sk.launches_by_nj()
+        want = EVAL_STEPS * env.sim.decimation
+        check(sum(by_nj.values()) == want,
+              f"eval {name}: K3 launches {by_nj} != {want}")
+        for k, v in res.items():
+            check(bool(np.isfinite(v)), f"eval {name}: {k} = {v}")
+        for nj, n in by_nj.items():
+            total[nj] = total.get(nj, 0) + n
+        print("[play eval] " + json.dumps(dict(
+            fixture=name, batch=B_RL, steps=EVAL_STEPS, wall_s=wall,
+            env_steps_per_s=EVAL_STEPS * B_RL / wall, k3_launches=by_nj,
+            **res)))
+    return total
+
+
+def cpu_flag(dev):
+    """The CLI's ``--cpu`` where ``dev`` is the CPU (a rehearsal)."""
+    return ["--cpu"] if dev.type == "cpu" else []
+
+
+def start_play_rom(work, dev):
+    """``cli train`` then ``cli play`` of ``rom_tracking`` at B=4096 as one
+    subprocess chain on the card (the real CLI end to end)."""
+    logs, exp = work / "rom_logs", work / "export_rom"
+    py = [sys.executable, "-m", "legged_gym_dev_tpu_torch.cli"]
+    py_args = cpu_flag(dev)
+    train = py + ["train", "--task", "rom_tracking", "--num-envs",
+                  str(B_RL), "--max-iterations", "1", "--log-root",
+                  str(logs), "--run-name", "t", *py_args]
+    play = py + ["play", "--task", "rom_tracking", "--num-envs", str(B_RL),
+                 "--steps", str(ROM_PLAY_STEPS), "--log-root", str(logs),
+                 "--export", str(exp), "--mat", str(work / "play_rom.mat"),
+                 *py_args]
+    log = open(work / "play_rom.log", "w")
+    script = (f"import subprocess, sys; "
+              f"sys.exit(subprocess.run({train!r}).returncode "
+              f"or subprocess.run({play!r}).returncode)")
+    proc = subprocess.Popen([sys.executable, "-c", script], cwd=ROOT,
+                            stdout=log, stderr=subprocess.STDOUT)
+    return proc, log, time.perf_counter()
+
+
+def finish_play_rom(running, work, timeout_s=600):
+    from scipy.io import loadmat
+
+    proc, log, t0 = running
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    log.close()
+    text = (work / "play_rom.log").read_text()
+    check(rc == 0, f"[play rom] exit {rc}: {text[-2000:]}")
+    rec = json.loads([line for line in text.splitlines()
+                      if line.startswith('{"steps"')][-1])
+    d = loadmat(str(work / "play_rom.mat"))
+    check(d["reward"].shape[-1] == ROM_PLAY_STEPS
+          and bool(np.isfinite(d["reward"]).all()), "[play rom] .mat")
+    for kind in ("torchscript", "exported"):
+        check(Path(rec["exports"][kind]).is_file(),
+              f"[play rom] no {kind} export")
+    print("[play rom] " + json.dumps(dict(
+        rec, wall_s=time.perf_counter() - t0,
+        env_steps_per_s=ROM_PLAY_STEPS * B_RL / rec["rollout_s"],
+        mat_keys=sorted(k for k in d if not k.startswith("__")))))
+
+
+def dynamics_check(dev):
+    """The autodiff dynamics against the analytic ``sim/kinematics.py`` at
+    B=4096 on the 12-joint test quadruped, random states (numpy draws,
+    random base orientations): max relative error <= 1e-4 each;
+    ``forward_dynamics`` against ``torch.linalg.solve`` on the same M (a
+    check only); the ms of each."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.sim import dynamics as dyn
+    from legged_gym_dev_tpu_torch.sim import kinematics as kin
+
+    rc = robot_cases()
+    inp = rc.substep_inputs("quadruped", B_RL, seed=9)
+    quat = np.random.default_rng(9).normal(size=(B_RL, 4))
+    inp["base_quat"] = (quat / np.linalg.norm(quat, axis=1, keepdims=True)
+                        ).astype(np.float32)
+    model = rc.torch_sim("quadruped", dev).model
+    st, tau = rc.torch_state(inp, dev)
+    f_ext = torch.as_tensor(np.random.default_rng(10).normal(
+        0, 5.0, (B_RL, model.nv)).astype(np.float32), device=dev)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    pairs = {"mass_matrix": (dyn.mass_matrix_autodiff, kin.mass_matrix),
+             "bias_forces": (dyn.bias_forces_autodiff, kin.bias_forces),
+             "contact_kinematics": (dyn.contact_kinematics_autodiff,
+                                    kin.contact_kinematics)}
+    rec = dict(batch=B_RL, nj=model.nj)
+    with torch.no_grad():
+        for name, (auto, ana) in pairs.items():
+            a, b = auto(model, st), ana(model, st)
+            if not isinstance(a, tuple):
+                a, b = (a,), (b,)
+            err = max(rel(x, y) for x, y in zip(a, b))
+            check(err <= 1e-4, f"[dynamics] {name}: rel err {err}")
+            rec[name] = dict(
+                max_rel_err=err,
+                autodiff_ms=time_ms(lambda: auto(model, st), 3, warmup=1),
+                analytic_ms=time_ms(lambda: ana(model, st), 3, warmup=1))
+        M, c = kin.mass_matrix(model, st), kin.bias_forces(model, st)
+        rhs = f_ext - c
+        rhs = torch.cat([rhs[:, :6], rhs[:, 6:] + tau], dim=-1)
+        qdd = dyn.forward_dynamics(model, st, tau, f_ext)
+        ref = torch.linalg.solve(M, rhs[..., None])[..., 0]
+        err = rel(qdd, ref)
+        check(err <= 1e-4, f"[dynamics] forward_dynamics: rel err {err}")
+        rec["forward_dynamics"] = dict(
+            max_rel_err_vs_linalg_solve=err,
+            ms=time_ms(lambda: dyn.forward_dynamics(model, st, tau, f_ext),
+                       3, warmup=1))
+    print("[dynamics] " + json.dumps(rec))
+    return rec
+
+
+def array_check(dev):
+    """The array-form staged solver against the entry form on bench.py's
+    gap batch: l1, B=256, N=50, SingleInt2D, the 20x10 schedule, the same
+    warm start. The array form runs no kernel (the JAX package's has
+    none); the entry form takes K1 (``linsolve="pallas"``). Solves/s of
+    each, the array form's feasible fraction (>= 0.98) and, on the
+    scenarios feasible in both, max |dz| within 2e-3 on at least 90%."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.solver import ALConfig
+    from legged_gym_dev_tpu_torch.solver import fast_tube as ft
+    from legged_gym_dev_tpu_torch.solver.trajopt import (
+        get_tube_warm_start,
+        get_warm_start,
+    )
+    from legged_gym_dev_tpu_torch.solver.tube_dynamics import (
+        get_tube_dynamics,
+    )
+    from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
+
+    B = B_ARRAY
+    p = bench_batch(B, "l1", dev)
+    cfg = ALConfig(linsolve="pallas")
+    sp = ft._staged_problem(p, N, "l1", 0.5, False)
+    with fp32_matmul():
+        z, v = get_warm_start("interpolate", p, N, cfg)
+        w = get_tube_warm_start("evaluate", get_tube_dynamics("l1", N, 0.5),
+                                z, v, p, N)
+    u0 = ft.pack_staged(z, w, v, sp.n, sp.m, N)
+    lb, ub = ft.staged_bounds(p, sp.n, sp.m, N)
+    before = btk.launches()
+    out, walls = {}, {}
+    for form, solve in (("entry", ft.solve_tube_fast_single),
+                        ("array", ft.solve_tube_fast_single_array)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[form] = solve(sp, p, u0, lb, ub, cfg)
+        torch.cuda.synchronize()
+        walls[form] = time.perf_counter() - t0
+        if form == "entry":
+            launches = {k: v - before[k] for k, v in btk.launches().items()}
+            before = btk.launches()
+    check(btk.launches() == before, "[array] the array form launched K1")
+    viol = {f: o.viol.cpu().numpy() for f, o in out.items()}
+    feas = {f: float(np.mean(v < 1e-3)) for f, v in viol.items()}
+    both = (viol["array"] < 1e-3) & (viol["entry"] < 1e-3)
+    zs = {f: o.x.reshape(B, N + 1, -1)[:, :, :sp.n].cpu().numpy()
+          for f, o in out.items()}
+    dz = np.abs(zs["array"] - zs["entry"]).max(axis=(1, 2))[both]
+    within = float(np.mean(dz <= 2e-3)) if dz.size else 0.0
+    rec = dict(batch=B, N=N, schedule="20x10", rom="SingleInt2D",
+               solves_per_s={f: B / w for f, w in walls.items()},
+               wall_s=walls, feasible_frac=feas, co_feasible=int(both.sum()),
+               max_dz_co_feasible=float(dz.max()) if dz.size else None,
+               within_2e3=within, entry_launches=launches)
+    print("[array] " + json.dumps(rec))
+    check(feas["array"] >= 0.98, f"[array] feasible {feas['array']}")
+    check(within >= 0.9, f"[array] co-feasible within 2e-3: {within}")
+    return launches
+
+
+def play_phase(dev):
+    """The play slice's main path: train the runs play resumes, ``cli
+    play`` with its exports and .mat on the quadruped and the recurrent
+    hopper, ``evaluate_tracking_policy`` with the three fixtures, the
+    ``rom_tracking`` CLI end to end (a subprocess beside the reference
+    forms), ``[dynamics]`` and ``[array]``. Returns K3's launches by nj
+    and the block-tridiagonal kernels' launches."""
+    import shutil
+
+    work = ROOT / "build" / "chip_smoke_play"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    runs = play_train(work, dev)
+    k3 = {}
+
+    def add(by_nj):
+        for nj, n in by_nj.items():
+            k3[nj] = k3.get(nj, 0) + n
+
+    for _, by_nj in runs.values():
+        add(by_nj)
+    _, env, runner, by_nj = play_run(PLAY_TASK, work / "quadruped.urdf",
+                                     runs[PLAY_TASK][0], PLAY_STEPS, work,
+                                     dev)
+    add(by_nj)
+    *_, by_nj = play_run("hopper_trajectory", work / "hopper.urdf",
+                         runs["hopper_trajectory"][0], PLAY_RNN_STEPS, work,
+                         dev)
+    add(by_nj)
+    add(play_eval(env, runner, dev))
+    del env, runner
+    rom = start_play_rom(work, dev)
+    try:
+        dynamics_check(dev)
+        bt = array_check(dev)
+    except BaseException:
+        rom[0].kill()
+        rom[0].wait()
+        rom[1].close()
+        raise
+    finish_play_rom(rom, work)
+    print(f"[launches] play path: K3 by nj {json.dumps(k3)}, "
+          f"{json.dumps(bt)}")
+    return k3, bt
+
+
 def kernels_alone_ms(b, dev):
     """The three block-tridiagonal kernels alone (CUDA events over
     back-to-back launches) at block size b and the zoo's shapes, each
@@ -2289,7 +2755,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     # one nvcc per source and substep instance, all started together
     jobs = [("block_tridiag.cu", ())] + [
-        (sk.SOURCE, sk.kernel(nj).defines) for nj in SUBSTEP_NJ]
+        (sk.SOURCE, sk.kernel(nj).defines) for nj in SUBSTEP_NJ + OTHER_NJ]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         builds = list(pool.map(lambda j: _build.build(*j), jobs))
     print(f"[build] {[str(lib) for lib, _ in builds]} in "
@@ -2317,7 +2783,8 @@ def main(argv=None):
             krec = kernel_phase(dev)
             krec.update(kernel_phase_b10(dev))
     if "substep" in phases:
-        krec["substep"], krec["substep_nj4"] = substep_phase(dev)
+        krec["substep"], krec["substep_nj4"], chains = substep_phase(dev)
+        krec.update({f"substep_nj{nj}": r for nj, r in chains.items()})
     btk.reset_launches()
     if "l1" in phases:
         solve_mode("l1", B_L1, dev)
@@ -2369,6 +2836,13 @@ def main(argv=None):
         for nj, n in by_nj.items():
             name = "substep" if nj == 12 else f"substep_nj{nj}"
             main_launches[name] = main_launches.get(name, 0) + n
+    if "play" in phases:
+        k3_play, bt_play = play_phase(dev)
+        for nj, n in k3_play.items():
+            name = "substep" if nj == 12 else f"substep_nj{nj}"
+            main_launches[name] = main_launches.get(name, 0) + n
+        for k, v in bt_play.items():
+            main_launches[k] += v
     print(f"[launches] main path: {json.dumps(main_launches)}")
     if "ref" in phases:
         reference_check(dev)
@@ -2390,7 +2864,8 @@ def main(argv=None):
         kernels = []
         for name in ("bt_solve", "bt_factor", "bt_msolve", "bt_solve_b10",
                      "bt_factor_b10", "bt_msolve_b10", "substep",
-                     *(f"substep_nj{nj}" for nj in SUBSTEP_NJ if nj != 12)):
+                     *(f"substep_nj{nj}" for nj in range(1, 25)
+                       if nj != 12)):
             if name not in krec:
                 continue
             r = krec[name]

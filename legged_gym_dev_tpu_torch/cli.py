@@ -1,11 +1,13 @@
-"""Command-line entry point of the port: ``train``, ``collect``,
-``train-tube``, ``plan`` and ``mpc``.
+"""Command-line entry point of the port: ``train``, ``play``,
+``collect``, ``train-tube``, ``plan`` and ``mpc``.
 
-Counterpart of those subcommands of ``legged_gym_dev_tpu/cli.py`` (``play``
-is not ported yet):
+Counterpart of those subcommands of ``legged_gym_dev_tpu/cli.py``
+(``play --video`` and ``--live`` wait for the MuJoCo tooling):
 
     python -m legged_gym_dev_tpu_torch.cli train \\
         --config configs/rl/hopper_single_int.yaml
+    python -m legged_gym_dev_tpu_torch.cli play --task hopper_trajectory \\
+        --num-envs 1 --steps 1000 --export exported --mat play.mat
     python -m legged_gym_dev_tpu_torch.cli collect \\
         --config configs/data_generation/default_custom.yaml \\
         --seed 42 --out data/rollouts.npz
@@ -18,10 +20,15 @@ is not ported yet):
 
 ``train`` trains a task of the registry through ``make_alg_runner`` and
 ``OnPolicyRunner.learn``; the YAML's ``env`` section holds the preset's
-arguments, ``env.urdf_path`` among them. ``collect`` records ROM-tracking
-rollouts (the physics-free ``rom_tracking`` task with its PD tracker, or a
-rigid-body trajectory task with the Raibert heuristic or a trained
-policy) into an ``.npz`` file or ``.tdl`` shards. ``train-tube`` trains a
+arguments, ``env.urdf_path`` among them. ``play`` resumes a trained run
+(the most recent under ``<log-root>/<task>``, or ``--load``), rolls its
+deterministic policy without observation noise, logs env 0's signals
+(``--mat``, ``--plot``) and exports the policy (``--export``: TorchScript
+and a ``torch.export`` program, ONNX where ``onnx`` is installed; the
+stateful LSTM TorchScript module for a recurrent run). ``collect``
+records ROM-tracking rollouts (the physics-free ``rom_tracking`` task with
+its PD tracker, or a rigid-body trajectory task with the Raibert heuristic
+or a trained policy) into an ``.npz`` file or ``.tdl`` shards. ``train-tube`` trains a
 tube network on them and writes the port's model file
 (``tube.models.save_mlp``). ``plan`` solves one tube-MPC plan of a
 ``PROBLEM_DICT`` problem and ``mpc`` runs the closed loop on it: by default
@@ -35,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -94,6 +102,152 @@ def cmd_train(args):
     print(json.dumps({"final": hist[-1], "log_dir": runner.log_dir}))
 
 
+def _play_signals(env, state, tr):
+    """Env 0's dashboard signals for the Logger's 9 panels: dof
+    position, velocity and torque, base velocities against the commands,
+    the feet's contact force z and the tracking error, as 0-d or 1-d
+    tensors. The contact force is computed on env 0's rows alone, from
+    ``contact_points`` (``contact_kinematics`` without the Jacobian it
+    does not use)."""
+    import torch
+
+    from .core.maths import quat_rotate_inverse
+    from .sim.dynamics import RobotState
+
+    sig = {"reward": tr.reward[0]}
+    r = getattr(state, "robot", None)
+    if r is None:
+        # physics-free ROM envs: only obs-derived signals exist
+        if env.num_obs > 5:
+            sig["base_vel_x"] = tr.obs[0, 5]
+        return sig
+    lin_b = quat_rotate_inverse(r.base_quat[0:1], r.v[0:1, :3])[0]
+    sig.update({
+        "dof_pos": r.q[0],
+        "dof_vel": r.v[0, 6:],
+        "base_vel_x": lin_b[0],
+        "base_vel_y": lin_b[1],
+        "base_vel_z": lin_b[2],
+        "base_vel_yaw": r.v[0, 5],
+    })
+    if getattr(state, "torques", None) is not None:
+        sig["dof_torque"] = state.torques[0]
+    if getattr(state, "actions", None) is not None:
+        act_scale = getattr(env, "action_scale", 1.0)
+        dd = getattr(env, "default_dof_pos", None)
+        if dd is not None and state.actions.shape[1] == r.q.shape[1]:
+            sig["dof_pos_target"] = act_scale * state.actions[0] + dd
+    cmds = getattr(state, "commands", None)
+    if cmds is not None:
+        sig["command_x"] = cmds[0, 0]
+        sig["command_y"] = cmds[0, 1]
+        sig["command_yaw"] = cmds[0, 2]
+    if getattr(state, "prev_error", None) is not None:
+        sig["tracking_error"] = torch.sqrt(torch.sum(state.prev_error[0]))
+    try:
+        from .sim.contact import contact_forces
+        from .sim.kinematics import contact_points
+
+        sim = env.sim
+        r0 = RobotState(base_pos=r.base_pos[:1], base_quat=r.base_quat[:1],
+                        q=r.q[:1], v=r.v[:1])
+        pos, vel = contact_points(sim.model, r0)
+        f = contact_forces(sim.contact, pos, vel,
+                           sim.model.tensor("contact_radius", r.q.device),
+                           sim.terrain_fn)
+        feet = getattr(env, "feet_spheres", None)
+        if not feet:
+            fs = getattr(env, "foot_sphere", None)
+            feet = (fs,) if fs is not None else None
+        sig["contact_forces_z"] = (f[0, list(feet), 2] if feet
+                                   else f[0, :, 2].max())
+    except (AttributeError, TypeError):
+        pass
+    return sig
+
+
+_EXPORT_LABELS = {"torchscript": "TorchScript",
+                  "exported": "torch.export program", "onnx": "ONNX",
+                  "lstm_torchscript": "LSTM TorchScript"}
+
+
+def play(env, runner, steps, export="", plot="", mat=""):
+    """Roll ``runner``'s deterministic policy on ``env`` for ``steps``
+    env steps from a reset (generator seeded 0), logging env 0's signals
+    with one host transfer a step; export the policy into the directory
+    ``export`` first, save the dashboard to ``plot`` and the log to
+    ``mat`` (.mat) when given. Returns {"exports": {kind: path},
+    "rollout_s": wall seconds of the steps, "logger": the Logger}."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from .utils import export as ex
+    from .utils.logger import Logger
+
+    policy = runner.get_inference_policy()
+    exports = {}
+    if export:
+        model = runner.model
+        if runner.recurrent:
+            exports["lstm_torchscript"] = ex.export_policy_lstm_torchscript(
+                model, os.path.join(export, "policy_lstm.pt"))
+        else:
+            exports["torchscript"] = ex.export_policy_torchscript(
+                model, os.path.join(export, "policy.pt"))
+            exports["exported"] = ex.export_policy_exported(
+                model, env.num_obs, os.path.join(export, "policy.pt2"))
+            exports["onnx"] = ex.export_policy_onnx(
+                model, env.num_obs, os.path.join(export, "policy.onnx"))
+        for kind, path in exports.items():
+            print(f"exported {_EXPORT_LABELS[kind]}: {path}")
+
+    if runner.recurrent:
+        policy.reset()
+    logger = Logger(dt=env.dt)
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(0)
+    with torch.no_grad():
+        state, obs = env.reset(gen)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, tr = env.step(state, policy(obs))
+            obs = tr.obs
+            sig = _play_signals(env, state, tr)
+            flat = torch.cat([v.reshape(-1).float() for v in sig.values()])
+            host = np.split(flat.cpu().numpy(), np.cumsum(
+                [v.numel() for v in sig.values()])[:-1])
+            logger.log_states({k: h.reshape(v.shape)
+                               for (k, v), h in zip(sig.items(), host)})
+        rollout_s = time.perf_counter() - t0
+    if plot:
+        logger.plot_states(plot)
+        print(f"dashboard saved: {plot}")
+    if mat:
+        logger.save_mat(mat)
+        print(f"state log saved: {mat}")
+    return {"exports": exports, "rollout_s": rollout_s, "logger": logger}
+
+
+def cmd_play(args):
+    from .envs import task_registry
+
+    env = task_registry.make_env(args.task, num_envs=args.num_envs,
+                                 add_noise=False,
+                                 device="cpu" if args.cpu else None)
+    # play always resumes a trained policy: --load names the run dir, else
+    # the most recent run under <log_root>/<task>
+    runner = task_registry.make_alg_runner(
+        env, args.task, log_root=args.log_root, seed=0, resume=True,
+        load_run=args.checkpoint, load_dir=args.load)
+    out = play(env, runner, args.steps, export=args.export, plot=args.plot,
+               mat=args.mat)
+    print(json.dumps({"steps": args.steps, "num_envs": env.num_envs,
+                      "rollout_s": out["rollout_s"],
+                      "exports": out["exports"]}))
+
+
 def collect_rollouts(args):
     """The ``collect`` subcommand's rollouts (host ``RolloutData``), from
     its parsed arguments; a ``--config`` file's ``collect`` section sets
@@ -148,8 +302,6 @@ def collect_rollouts(args):
 def save_rollouts(args, data) -> str:
     """Write ``data`` where ``collect --out`` says: an ``.npz`` file, or
     ``.tdl`` shards under that directory with ``--shards``."""
-    import os
-
     import numpy as np
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -224,7 +376,6 @@ def make_tube_training(args):
     directory of ``.tdl`` shards, else the dataset built from the
     ``.npz`` rollouts; the model's initial weights come from ``--seed``."""
     import glob
-    import os
 
     import numpy as np
     import torch
@@ -494,8 +645,6 @@ def cmd_mpc(args):
 
 
 def _save_mat_or_npz(path, payload):
-    import os
-
     import numpy as np
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -533,6 +682,22 @@ def build_parser():
     t.add_argument("--resume", action="store_true")
     t.add_argument("--load", default="latest")
     t.set_defaults(fn=cmd_train)
+
+    pl = sub.add_parser("play")
+    common(pl)
+    pl.add_argument("--task", default="hopper_trajectory")
+    pl.add_argument("--num-envs", type=int, default=1)
+    pl.add_argument("--steps", type=int, default=1000)
+    pl.add_argument("--load", default="",
+                    help="run dir to resume (default: the most recent run "
+                         "under <log-root>/<task>)")
+    pl.add_argument("--checkpoint", default="latest")
+    pl.add_argument("--log-root", default="logs")
+    pl.add_argument("--export", default="",
+                    help="directory for the exported policy")
+    pl.add_argument("--plot", default="", help="dashboard .png")
+    pl.add_argument("--mat", default="", help=".mat state-log export")
+    pl.set_defaults(fn=cmd_play)
 
     c = sub.add_parser("collect")
     common(c)

@@ -34,6 +34,7 @@ from ..sim.rom_sim import RomSim
 from ..sim.urdf import parse_urdf
 from ..trajgen.generator import TrajectoryGenerator
 from ..trajgen.samplers import (
+    SAMPLER_REGISTRY,
     UniformSampleHoldDT,
     UniformWeightSampler,
     UniformWeightSamplerNoRamp,
@@ -547,26 +548,34 @@ def make_hopper_trajectory_env(
         add_noise: bool = True, domain_rand: bool = True,
         push_robots: bool = True,
         max_push_vel=(0.25, 0.25, 0.25, 0.75, 0.75, 0.75),
-        time_between_pushes=(0.5, 10.0), urdf_path: str = HOPPER_URDF,
-        reward_scales=HOPPER_REWARD_SCALES, curriculum=None, device=None):
+        time_between_pushes=(0.5, 10.0), push_interval_s=None,
+        urdf_path: str = HOPPER_URDF, reward_scales=HOPPER_REWARD_SCALES,
+        curriculum=None, weight_sampler=None, device=None):
     """Hopper tracking a SingleInt2D ROM.
 
     ``curriculum``: None (off), "single_int" (the 8-stage schedule) or
     "default" (the 3-stage tables). Pushes SET the 6-dim base velocity on
-    per-env timers in ``time_between_pushes`` seconds. Mode weights come
-    from the sampler without the ramp mode. (The JAX preset's
-    ``weight_sampler`` names and its ``push_interval_s`` alias are not
-    ported.) ``device=None`` means the CUDA card."""
+    per-env timers in ``time_between_pushes`` seconds; ``push_interval_s``
+    is a legacy alias mapped onto the timer, ``(min(0.5, s), s)``.
+    ``weight_sampler``: None (the sampler without the ramp mode), a
+    ``SAMPLER_REGISTRY`` name (e.g. "UniformWeightSamplerTurnBiased") or a
+    sampler instance. ``device=None`` means the CUDA card."""
     from .hopper_trajectory import CurriculumTables, HopperTrajectoryEnv
 
+    if push_interval_s is not None:
+        time_between_pushes = (min(0.5, push_interval_s), push_interval_s)
+    if weight_sampler is None:
+        weight_sampler = UniformWeightSamplerNoRamp()
+    elif isinstance(weight_sampler, str):
+        weight_sampler = SAMPLER_REGISTRY[weight_sampler]()
     dev = resolve_device(device)
     rom = SingleInt2D.create(rom_dt, [-10.0, -10.0], [10.0, 10.0],
                              [-vel_max, -vel_max], [vel_max, vel_max],
                              device=dev)
     gen = TrajectoryGenerator.create(
-        rom, UniformSampleHoldDT.create(2.0, 6.0),
-        UniformWeightSamplerNoRamp(), dt_loop=0.02,
-        N=n_traj, dN=1, freq_low=0.01, freq_high=2.0, prob_stationary=0.01)
+        rom, UniformSampleHoldDT.create(2.0, 6.0), weight_sampler,
+        dt_loop=0.02, N=n_traj, dN=1, freq_low=0.01, freq_high=2.0,
+        prob_stationary=0.01)
     obs_scales, noise_vec = _hopper_obs_vectors(np.ones(2 * n_traj), dev)
     tables = {
         None: None,

@@ -9,12 +9,13 @@ Counterpart of the tube parts of ``legged_gym_dev_tpu/evaluation.py``:
   along an executed closed-loop trace, and the width multiplier that
   restores coverage there;
 - ``evaluate_error_dynamics``: recursive signed-error prediction;
+- ``evaluate_tracking_policy``: a tracking policy against the
+  deterministic zero/square/circle trajectory fixtures;
 - ``evaluate_velocity_tracking``: command tracking and gait statistics of
   a velocity-command policy.
 
-Models run on the device their weights lie on. ``evaluate_tracking_policy``
-(it needs the scripted zero/square/circle trajectory generators) and the
-sim2sim comparisons of the JAX module are not ported yet.
+Models run on the device their weights lie on. The sim2sim comparisons of
+the JAX module (MuJoCo) are not ported yet.
 """
 from __future__ import annotations
 
@@ -210,6 +211,52 @@ def evaluate_error_dynamics(model: MLP, rollouts: RolloutData,
         "recursive_mse": float(np.mean((pred - actual) ** 2)),
         "recursive_final_err": float(
             np.mean(np.linalg.norm(pred[:, -1] - actual[:, -1], axis=-1))),
+    }
+
+
+@torch.no_grad()
+def evaluate_tracking_policy(env, policy, traj_gen_cls, steps: int = 400,
+                             seed: int = 0) -> Dict[str, float]:
+    """Swap the env's trajectory generator for a deterministic fixture
+    (``ZeroTrajectoryGenerator``, ``SquareTrajectoryGenerator`` or
+    ``CircleTrajectoryGenerator``), reset from a ``torch.Generator``
+    seeded by ``seed`` and roll ``policy`` for ``steps`` env steps; the
+    planar distance between the robot's ROM projection and the window's
+    first point, per env and step, stays on the device and is fetched
+    once."""
+    rigid = hasattr(env, "traj_gen")
+    base = env.traj_gen if rigid else env.sim.traj_gen
+    fixture = traj_gen_cls.create(
+        base.rom, base.t_sampler, base.weight_sampler,
+        dt_loop=base.dt_loop, N=base.N, dN=base.dN)
+    if rigid:
+        env = env.replace(traj_gen=fixture)
+    else:  # ROM-only envs hold the generator inside their sim
+        env = env.replace(sim=env.sim.replace(traj_gen=fixture))
+    gen = torch.Generator(device=env.device)
+    gen.manual_seed(seed)
+    state, obs = env.reset(gen)
+
+    def step_err(state):
+        if hasattr(state, "robot"):            # rigid-body envs
+            pz_x = env.rom.proj_z(state.robot.root_states)
+            desired = state.trajectory[:, 0, :]
+        else:                                   # ROM-only envs
+            pz_x = env.sim.rom.proj_z(state.sim.root_states)
+            desired = state.sim.trajectory[:, 0, :]
+        return torch.linalg.vector_norm(pz_x[..., :2] - desired[..., :2],
+                                        dim=-1)
+
+    errs = []
+    for _ in range(steps):
+        state, tr = env.step(state, policy(obs))
+        obs = tr.obs
+        errs.append(step_err(state))
+    errs = torch.stack(errs).cpu().numpy()
+    return {
+        "mean_tracking_error": float(errs.mean()),
+        "max_tracking_error": float(errs.max()),
+        "final_tracking_error": float(errs[-50:].mean()),
     }
 
 

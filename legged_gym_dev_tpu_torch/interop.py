@@ -149,9 +149,7 @@ def env_state_from_numpy(jax_state, env, generator=None):
     example ``jax.tree.map(np.asarray, state)``) as the port's
     ``TrajectoryEnvState`` on ``env``'s device, so both packages step from
     the same state. The JAX PRNG keys have no counterpart: the port's state
-    draws from ``generator`` (a new one seeded 0 by default); the JAX
-    scripted-generator fields, which the port does not have, are
-    dropped."""
+    draws from ``generator`` (a new one seeded 0 by default)."""
     from .envs.legged_robot_trajectory import TrajectoryEnvState
     from .sim.dynamics import RobotState
 
@@ -249,7 +247,7 @@ def traj_gen_state_from_numpy(jax_tg, generator):
                   "extreme_input", "ramp_t_start", "ramp_v_start",
                   "ramp_v_end", "sin_mag", "sin_freq", "sin_off",
                   "sin_mean", "trajectory", "v_trajectory", "v",
-                  "stationary")})
+                  "stationary", "center")})
 
 
 def hopper_env_state_from_numpy(jax_state, env, generator=None):

@@ -2,9 +2,18 @@
 
 Counterpart of ``legged_gym_dev_tpu/sim/dynamics.py``: the floating-base
 kinematic tree (``RobotModel.from_spec``, fixed links merged into their
-movable parent), the batched ``RobotState`` and the semi-implicit
-``integrate``. The autodiff cross-check forms of the JAX module are not
-ported; the analytic hot path is ``sim/kinematics.py``.
+movable parent), the batched ``RobotState``, the semi-implicit
+``integrate``, and the autodiff reference forms: the mass matrix as the
+Gauss sum of body-Jacobian quadratic forms (``jacfwd`` of the perturbed
+forward kinematics at d = 0), the bias forces from the Lagrangian
+identity c = (d(Mv)/dd) v - 1/2 d(v^T M v)/dd + dV/dd, the contact
+Jacobians, ``solve_qdd`` and ``forward_dynamics``. The public
+``mass_matrix`` / ``bias_forces`` / ``contact_kinematics`` delegate to the
+analytic hot path, ``sim/kinematics.py``; the autodiff forms
+(``torch.func``) are its independent cross-check.
+
+A tangent perturbation d = [dp, dphi, dq] acts on the base position, on
+the base rotation from the right (R <- R exp(dphi^)) and on the joints.
 
 Conventions are the JAX package's: base position, base quaternion (xyzw),
 joint coordinates; velocity ``v = [v_world, omega_body, qdot]``; body
@@ -189,3 +198,237 @@ def integrate(model, state: RobotState, qdd: torch.Tensor,
     base_quat = quat_normalize(quat_mul(state.base_quat, dq_quat))
     q = state.q + dt * v_new[..., 6:]
     return RobotState(base_pos=base_pos, base_quat=base_quat, q=q, v=v_new)
+
+
+# ---------------------------------------------------------------------------
+# Autodiff reference forms
+# ---------------------------------------------------------------------------
+
+_CONSTANTS = ("origin_rot", "origin_pos", "axis", "com", "inertia", "mass",
+              "gravity", "contact_offset")
+
+
+def _load_constants(model: RobotModel, device) -> None:
+    """Put the model's constants in its tensor cache before any
+    ``torch.func`` transform runs: a cached tensor first made inside one
+    transform's level would escape that level when a later one reads it."""
+    for name in _CONSTANTS:
+        model.tensor(name, device)
+
+
+def _skew(v):
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], dim=-1),
+        torch.stack([v[..., 2], z, -v[..., 0]], dim=-1),
+        torch.stack([-v[..., 1], v[..., 0], z], dim=-1),
+    ], dim=-2)
+
+
+def _exp_mat_small(phi):
+    """SO(3) exp to 2nd order: exact value and 1st/2nd derivatives at
+    phi = 0, where it is evaluated (a norm-based Rodrigues formula has a
+    non-differentiable sqrt there)."""
+    K = _skew(phi)
+    return torch.eye(3, dtype=phi.dtype, device=phi.device) + K + 0.5 * (K @ K)
+
+
+def _exp_mat_axis(axis, theta):
+    """Exact Rodrigues rotation about a constant unit axis."""
+    K = _skew(axis)
+    s, c = torch.sin(theta), torch.cos(theta)
+    return (torch.eye(3, dtype=axis.dtype, device=axis.device) + s * K
+            + (1.0 - c) * (K @ K))
+
+
+def fk_perturbed(model: RobotModel, base_pos, base_R, q, d):
+    """World rotations (nb, 3, 3) and positions (nb, 3) of all body
+    frames under the tangent perturbation d (single env)."""
+    dev = base_pos.device
+    origin_rot = model.tensor("origin_rot", dev)
+    origin_pos = model.tensor("origin_pos", dev)
+    axis = model.tensor("axis", dev)
+    dp, dphi, dq = d[:3], d[3:6], d[6:]
+    Rs = [base_R @ _exp_mat_small(dphi)]
+    ps = [base_pos + dp]
+    for j in range(model.nj):
+        Rp, pp = Rs[model.parent[j]], ps[model.parent[j]]
+        Rj = Rp @ origin_rot[j]
+        pj = pp + Rp @ origin_pos[j]
+        theta = q[j] + dq[j]
+        if model.jtype[j] == REVOLUTE:
+            Rc = Rj @ _exp_mat_axis(axis[j], theta)
+            pc = pj
+        else:
+            Rc = Rj
+            pc = pj + Rj @ (axis[j] * theta)
+        Rs.append(Rc)
+        ps.append(pc)
+    return torch.stack(Rs), torch.stack(ps)
+
+
+def fk(model: RobotModel, state_pos, state_quat, q):
+    """Body rotations and positions of one env."""
+    base_R = quat_to_rotmat(state_quat)
+    return fk_perturbed(model, state_pos, base_R, q,
+                        torch.zeros(model.nv, dtype=q.dtype,
+                                    device=q.device))
+
+
+def _coms_fn(model, base_pos, base_R, q):
+    """d -> (COM positions (nb, 3), rotations (nb, 3, 3))."""
+    com = model.tensor("com", base_pos.device)
+
+    def coms(d):
+        Rs, ps = fk_perturbed(model, base_pos, base_R, q, d)
+        return ps + torch.einsum("bij,bj->bi", Rs, com), Rs
+
+    return coms
+
+
+def _rot_jacobians(dRs, Rs0):
+    """omega^ = dR R^T per tangent direction: Jr[:, :, k] = vee(dR_k R^T),
+    (nb, 3, nv)."""
+    W = torch.einsum("bimk,bjm->bijk", dRs, Rs0)
+    return torch.stack([W[:, 2, 1, :], W[:, 0, 2, :], W[:, 1, 0, :]], dim=1)
+
+
+def _body_jacobians(model, base_pos, base_R, q):
+    """COM positions, world rotations, COM translational Jacobians Jp
+    (nb, 3, nv) and rotational Jacobians Jr (nb, 3, nv) of one env."""
+    _load_constants(model, base_pos.device)
+    coms = _coms_fn(model, base_pos, base_R, q)
+    zero = torch.zeros(model.nv, dtype=q.dtype, device=q.device)
+    c0, Rs0 = coms(zero)
+    Jp, dRs = torch.func.jacfwd(coms)(zero)
+    return c0, Rs0, Jp, _rot_jacobians(dRs, Rs0)
+
+
+def mass_matrix_at(model, base_pos, base_R, q, d):
+    """M(q (+) d) of one env: the Gauss sum of the bodies' Jacobian
+    quadratic forms."""
+    dev = base_pos.device
+    _load_constants(model, dev)
+    coms = _coms_fn(model, base_pos, base_R, q)
+    Jp, dRs = torch.func.jacfwd(coms)(d)
+    _, Rs0 = coms(d)
+    Jr = _rot_jacobians(dRs, Rs0)
+    I_world = torch.einsum("bij,bjk,blk->bil", Rs0,
+                           model.tensor("inertia", dev), Rs0)
+    return (torch.einsum("b,bik,bil->kl", model.tensor("mass", dev), Jp, Jp)
+            + torch.einsum("bik,bij,bjl->kl", Jr, I_world, Jr))
+
+
+def mass_matrix_autodiff(model, state: RobotState):
+    """Batched M(q): (B, nv, nv), the autodiff reference form."""
+    _load_constants(model, state.q.device)
+
+    def single(base_pos, base_quat, q):
+        return mass_matrix_at(model, base_pos, quat_to_rotmat(base_quat), q,
+                              torch.zeros(model.nv, dtype=q.dtype,
+                                          device=q.device))
+
+    return torch.func.vmap(single)(state.base_pos, state.base_quat, state.q)
+
+
+def bias_forces_autodiff(model, state: RobotState):
+    """Batched Coriolis/centrifugal + gravity bias c(q, v): (B, nv), from
+    the Lagrangian identity in tangent coordinates at d = 0:
+
+        c = (d(M v)/dd) v - 1/2 d(v^T M v)/dd + dV/dd.
+
+    Cost note: the first term is one directional derivative (``jvp``
+    along v) and the second one reverse-mode gradient of a scalar, not a
+    full Jacobian of d -> M(d) v, which would nest ``jacfwd`` in
+    ``jacfwd`` and pay nv^2 kinematics passes."""
+    dev = state.q.device
+    _load_constants(model, dev)
+    mass, gravity = model.tensor("mass", dev), model.tensor("gravity", dev)
+
+    def single(base_pos, base_quat, q, v):
+        base_R = quat_to_rotmat(base_quat)
+        coms = _coms_fn(model, base_pos, base_R, q)
+
+        def Mv(d):
+            return mass_matrix_at(model, base_pos, base_R, q, d) @ v
+
+        def vMv(d):
+            return 0.5 * (v @ Mv(d))
+
+        def V(d):
+            return -torch.sum(mass * (coms(d)[0] @ gravity))
+
+        zero = torch.zeros(model.nv, dtype=q.dtype, device=q.device)
+        _, dMv_v = torch.func.jvp(Mv, (zero,), (v,))   # (d(Mv)/dd) v
+        c_cor = dMv_v - torch.func.grad(vMv)(zero)     # - 1/2 d(v^T M v)/dd
+        return c_cor + torch.func.grad(V)(zero)
+
+    return torch.func.vmap(single)(state.base_pos, state.base_quat, state.q,
+                                   state.v)
+
+
+def contact_kinematics_autodiff(model, state: RobotState):
+    """World positions, velocities and Jacobians of the contact spheres:
+    (pos (B, nc, 3), vel (B, nc, 3), Jc (B, nc, 3, nv))."""
+    dev = state.q.device
+    _load_constants(model, dev)
+    cb = torch.as_tensor(model.contact_body, dtype=torch.long, device=dev)
+    offset = model.tensor("contact_offset", dev)
+
+    def single(base_pos, base_quat, q, v):
+        base_R = quat_to_rotmat(base_quat)
+
+        def points(d):
+            Rs, ps = fk_perturbed(model, base_pos, base_R, q, d)
+            return ps[cb] + torch.einsum("cij,cj->ci", Rs[cb], offset)
+
+        zero = torch.zeros(model.nv, dtype=q.dtype, device=q.device)
+        Jc = torch.func.jacfwd(points)(zero)          # (nc, 3, nv)
+        return points(zero), torch.einsum("cik,k->ci", Jc, v), Jc
+
+    return torch.func.vmap(single)(state.base_pos, state.base_quat, state.q,
+                                   state.v)
+
+
+# The public forms delegate to the analytic hot path (kinematics.py); the
+# autodiff forms above are independent references for tests.
+def mass_matrix(model, state: RobotState):
+    """Batched M(q): (B, nv, nv)."""
+    from .kinematics import mass_matrix as _mm
+    return _mm(model, state)
+
+
+def bias_forces(model, state: RobotState):
+    """Batched Coriolis/centrifugal + gravity bias c(q, v): (B, nv)."""
+    from .kinematics import bias_forces as _bf
+    return _bf(model, state)
+
+
+def contact_kinematics(model, state: RobotState):
+    """World positions, velocities and Jacobians of the contact spheres:
+    (pos (B, nc, 3), vel (B, nc, 3), Jc (B, nc, 3, nv))."""
+    from .kinematics import contact_kinematics as _ck
+    return _ck(model, state)
+
+
+def solve_qdd(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """qdd = M^-1 rhs through the unrolled Cholesky of
+    ``solver/block_tridiag.py``, with a scale-relative regularization of
+    1e-6 of the smallest diagonal entry (small robots have joint inertias
+    of about 1e-3, which an absolute epsilon would perturb)."""
+    from ..solver.block_tridiag import _chol_solve, small_cholesky
+
+    diag_min = torch.amin(torch.diagonal(M, dim1=-2, dim2=-1), dim=-1)
+    M = M + (1e-6 * diag_min)[..., None, None] * torch.eye(
+        M.shape[-1], dtype=M.dtype, device=M.device)
+    return _chol_solve(small_cholesky(M), rhs)
+
+
+def forward_dynamics(model, state: RobotState, tau: torch.Tensor,
+                     f_ext_generalized: torch.Tensor) -> torch.Tensor:
+    """qdd = M^-1 (S tau + f_ext - c); tau (B, nj) joint torques."""
+    M = mass_matrix(model, state)
+    c = bias_forces(model, state)
+    rhs = f_ext_generalized - c
+    rhs = torch.cat([rhs[..., :6], rhs[..., 6:] + tau], dim=-1)
+    return solve_qdd(M, rhs)

@@ -368,6 +368,27 @@ def _bcast(cols, B, like):
     return torch.stack(arrs, dim=-1)
 
 
+def mass_matrix(model: RobotModel, state: RobotState,
+                base_mass_delta=None) -> torch.Tensor:
+    """Batched M(q): (B, nv, nv)."""
+    B = state.base_pos.shape[0]
+    p0, quat, q, v = _state_lm(state)
+    chain = fk_chain_lm(model, p0, quat, q, v)
+    cs, _, Iws = _com_chain(model, chain)
+    M = _assemble_M(model, chain, cs, Iws, base_mass_delta)
+    return torch.stack([_bcast(row, B, state.base_pos) for row in M], dim=-2)
+
+
+def bias_forces(model: RobotModel, state: RobotState) -> torch.Tensor:
+    """Batched Coriolis/centrifugal + gravity bias c(q, v): (B, nv)."""
+    B = state.base_pos.shape[0]
+    p0, quat, q, v = _state_lm(state)
+    chain = fk_chain_lm(model, p0, quat, q, v)
+    cs, acs, Iws = _com_chain(model, chain)
+    return _bcast(_assemble_bias(model, chain, cs, acs, Iws), B,
+                  state.base_pos)
+
+
 def contact_points(model: RobotModel, state: RobotState):
     """(pos (B,nc,3), vel (B,nc,3)) of the contact spheres: the part of
     ``contact_kinematics`` that callers who discard the Jacobian need (XLA

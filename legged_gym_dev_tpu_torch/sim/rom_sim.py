@@ -65,6 +65,9 @@ class RomSim:
     randomize_rom_distance: bool = True
     num_envs: int = 1
 
+    def replace(self, **kw) -> "RomSim":
+        return dataclasses.replace(self, **kw)
+
     @property
     def rom(self) -> RomDynamics:
         return self.traj_gen.rom

@@ -27,10 +27,10 @@ from .al_solver import ALConfig
 from .fast_tube import (
     _staged_problem,
     solve_tube_fast,
+    solve_tube_fast_single,
     staged_bounds,
     unpack_staged,
 )
-from .staged_scalar import solve_staged_scalar
 from .trajopt import TrajOptParams, TrajOptSolution
 
 
@@ -92,7 +92,7 @@ def solve_tube_fast_bucketed(
     p_sub = _take(p_batch, pad)
     lb_u, ub_u = staged_bounds(p_sub, sp.n, sp.m, N)
     s1 = out1.sol
-    sol2 = solve_staged_scalar(
+    sol2 = solve_tube_fast_single(
         sp, p_sub, s1.x.reshape(B, N + 1, b)[pad], lb_u, ub_u, cfg2,
         lam0=s1.lam[pad], mu0=s1.mu[pad], rho_init=s1.rho[pad])
 

@@ -1,9 +1,10 @@
 """Batched ROM trajectory generation with explicit state.
 
 Counterpart of ``legged_gym_dev_tpu/trajgen/generator.py``
-(``TrajectoryGenerator``; the scripted fixture generators are not ported
-yet). All per-env state lives in a ``TrajGenState`` and every update is a
-masked batch update:
+(``TrajectoryGenerator`` and the scripted zero/square/circle fixtures of
+the deterministic evaluation, with ``TRAJ_GEN_REGISTRY``). All per-env
+state lives in a ``TrajGenState`` and every update is a masked batch
+update:
 
 - 4 input modes (sample-hold / ramp / extreme bang-bang / sinusoid) mixed
   by sampled simplex weights;
@@ -26,7 +27,7 @@ import math
 import torch
 
 from ..core.maths import masked_update as _mwhere
-from ..core.rom import RomDynamics
+from ..core.rom import DoubleInt2D, RomDynamics, SingleInt2D
 from .samplers import UniformSampleHoldDT, UniformWeightSampler, f32
 
 
@@ -52,6 +53,7 @@ class TrajGenState:
     v_trajectory: torch.Tensor      # (B, N*dN, m)
     v: torch.Tensor                 # (B, m) last applied ROM input
     stationary: torch.Tensor        # (B,) bool
+    center: torch.Tensor            # (B, 2) scripted-circle center
 
     def replace(self, **kw) -> "TrajGenState":
         return dataclasses.replace(self, **kw)
@@ -101,7 +103,8 @@ class TrajectoryGenerator:
             sin_mag=z(batch, m), sin_freq=z(batch, m), sin_off=z(batch, m),
             sin_mean=z(batch, m), trajectory=z(batch, W + 1, n),
             v_trajectory=z(batch, W, m), v=z(batch, m),
-            stationary=torch.zeros(batch, dtype=torch.bool, device=dev))
+            stationary=torch.zeros(batch, dtype=torch.bool, device=dev),
+            center=z(batch, 2))
 
     # ---- resampling (masked) --------------------------------------------
     def resample(self, state: TrajGenState, mask: torch.Tensor,
@@ -252,3 +255,125 @@ class TrajectoryGenerator:
     def get_v_trajectory(self, state: TrajGenState) -> torch.Tensor:
         """The window's inputs, strided by dN."""
         return state.v_trajectory[:, ::self.dN, :]
+
+
+class ZeroTrajectoryGenerator(TrajectoryGenerator):
+    """Always-stationary fixture: zero inputs, the window held still."""
+
+    def resample(self, state, mask, z):
+        return state.replace(stationary=torch.where(mask, True,
+                                                    state.stationary))
+
+    def get_input_t(self, state, z, allow_mask=None):
+        return state, torch.zeros((z.shape[0], self.rom.m),
+                                  dtype=torch.float32, device=z.device)
+
+
+def _window(t, lo, hi, value):
+    """``value`` where lo <= t < hi, else 0."""
+    return torch.where((lo <= t) & (t < hi), value, 0.0)
+
+
+class SquareTrajectoryGenerator(TrajectoryGenerator):
+    """Open-loop piecewise square path for SingleInt2D / DoubleInt2D. The
+    breakpoints come from the ROM's float32 bounds, as 0-d tensors on its
+    device."""
+
+    def resample(self, state, mask, z):
+        return state
+
+    def get_input_t(self, state, z, allow_mask=None):
+        t = state.t
+        vmax, vmin = self.rom.v_max, self.rom.v_min
+        if isinstance(self.rom, DoubleInt2D):
+            zmax, zmin = self.rom.z_max, self.rom.z_min
+            c0 = zmax[3] / 2 / vmax[1]
+            c1 = c0 + (1 - 2 * (0.5 * vmax[1] * c0 ** 2)) / (zmax[3] / 2)
+            c2 = c1 + zmin[3] / 2 / vmin[1]
+            c3 = c2
+            c4 = c3 + zmax[2] / vmax[0]
+            c5 = c4 + (1 - 2 * (0.5 * vmax[0] * (c4 - c3) ** 2)) / (
+                zmax[2] / 2)
+            c6 = c5 + zmin[2] / vmin[0]
+            c7 = c6
+            c8 = c7 + zmin[3] / 2 / vmin[1]
+            c9 = c8 + (1 - 2 * (0.5 * torch.abs(vmin[1]) * (c8 - c7) ** 2)
+                       ) / (torch.abs(zmin[3]) / 2)
+            c10 = c9 + zmax[3] / 2 / vmax[1]
+            c11 = c10
+            c12 = c11 + zmin[2] / vmin[0]
+            c13 = c12 + (1 - 2 * (0.5 * torch.abs(vmin[0])
+                                  * (c12 - c11) ** 2)) / (
+                torch.abs(zmin[2]) / 2)
+            c14 = c13 + zmax[2] / vmax[0]
+            vy = (_window(t, 0, c0, vmax[1]) + _window(t, c1, c2, vmin[1])
+                  + _window(t, c7, c8, vmin[1])
+                  + _window(t, c9, c10, vmax[1]))
+            vx = (_window(t, c3, c4, vmax[0]) + _window(t, c5, c6, vmin[0])
+                  + _window(t, c11, c12, vmin[0])
+                  + _window(t, c13, c14, vmax[0]))
+        elif isinstance(self.rom, SingleInt2D):
+            c1 = 2 / vmax[1]
+            c2 = c1 + 1 / vmax[0]
+            c3 = c2 + 2 / torch.abs(vmin[1])
+            c4 = c3 + 1 / torch.abs(vmin[0])
+            vy = (_window(t, 0, c1, vmax[1] / 2)
+                  + _window(t, c2, c3, vmin[1] / 2))
+            # the reference's own choice: vmin[1] on the last leg
+            vx = _window(t, c1, c2, vmax[0]) + _window(t, c3, c4, vmin[1])
+        else:
+            raise ValueError(
+                "Square fixture supports SingleInt2D/DoubleInt2D")
+        return state, torch.stack([vx, vy], dim=-1)
+
+    def reset(self, state, mask, z):
+        z = torch.where(self.rom.vel_inds[None, :], 0.0, z)
+        return super().reset(state, mask, z)
+
+
+def _norm(x):
+    """Euclidean norm over the last axis, kept: sqrt of the sum of
+    squares."""
+    return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+
+
+class CircleTrajectoryGenerator(TrajectoryGenerator):
+    """Feedback circle tracker for SingleInt2D / DoubleInt2D: a circle of
+    radius 0.5 around a center set on reset, at the ROM's slowest input
+    bound."""
+
+    def resample(self, state, mask, z):
+        center = z[:, :2] - torch.tensor([0.5, 0.0], device=z.device)
+        return state.replace(center=_mwhere(mask, center, state.center))
+
+    def get_input_t(self, state, z, allow_mask=None):
+        t = state.t
+        vmax, vmin = self.rom.v_max, self.rom.v_min
+        speed = torch.min(torch.minimum(vmax, torch.abs(vmin)))
+        if isinstance(self.rom, DoubleInt2D):
+            ph = t / speed
+            z_des = state.center + 0.5 * torch.stack(
+                [torch.cos(ph), torch.sin(ph)], dim=-1)
+            v_des = 0.5 * torch.stack([-torch.sin(ph), torch.cos(ph)],
+                                      dim=-1) / speed
+            v = self.rom.clip_v_z(
+                z, -4.0 * (z[:, :2] - z_des) - 4.0 * (z[:, 2:] - v_des))
+        elif isinstance(self.rom, SingleInt2D):
+            e = z - state.center
+            v = torch.stack([-e[:, 1], e[:, 0]], dim=-1)
+            vn = torch.clamp(_norm(v), min=1e-8)
+            v = v + -(e - 0.5 * e / vn)
+            vn2 = torch.clamp(_norm(v), min=1e-8)
+            v = v / vn2 * speed
+        else:
+            raise ValueError(
+                "Circle fixture supports SingleInt2D/DoubleInt2D")
+        return state, v
+
+
+TRAJ_GEN_REGISTRY = {
+    "TrajectoryGenerator": TrajectoryGenerator,
+    "ZeroTrajectoryGenerator": ZeroTrajectoryGenerator,
+    "SquareTrajectoryGenerator": SquareTrajectoryGenerator,
+    "CircleTrajectoryGenerator": CircleTrajectoryGenerator,
+}

@@ -23,6 +23,7 @@ from tests.torch_robot_cases import (
     torch_state,
     write_actuator_net,
 )
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

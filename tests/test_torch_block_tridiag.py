@@ -24,6 +24,7 @@ from legged_gym_dev_tpu_torch.solver.staged_scalar import (
     factor_solve_entries,
 )
 from tests.test_torch_kernels_cuda import entry_lists, make_systems
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 ATOL = 3e-5
 SHAPES = [(8, 12, 5), (16, 51, 5), (4, 6, 3)]

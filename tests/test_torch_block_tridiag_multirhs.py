@@ -14,6 +14,7 @@ from legged_gym_dev_tpu.ops.pallas_block_tridiag import (
 )
 from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
 from tests.test_torch_kernels_cuda import entry_lists, make_systems
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 ATOL = 3e-5
 

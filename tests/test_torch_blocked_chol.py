@@ -20,6 +20,7 @@ from legged_gym_dev_tpu_torch.ops.blocked_chol import (
     blocked_cholesky,
 )
 from legged_gym_dev_tpu_torch.solver.staged_scalar import _cap_psize
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 
 def rel_err(t, ref):

@@ -23,6 +23,7 @@ from legged_gym_dev_tpu_torch.solver import (
     closed_loop_tube_mpc_fast,
 )
 from tests.torch_port_cases import PLANT_ARGS, gap_case, jax_params, torch_params
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 N, H_REV, B, H = 20, 10, 3, 3
 NAMES = ("z", "v", "w", "pz_x", "viol")

@@ -28,6 +28,7 @@ from legged_gym_dev_tpu_torch.envs.presets import make_hopper_trajectory_env
 from legged_gym_dev_tpu_torch.interop import hopper_env_state_from_numpy
 from legged_gym_dev_tpu_torch.tube import collect as tcol
 from tests.torch_robot_cases import HOPPER_URDF
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 B = 4
 KW = dict(num_envs=B, add_noise=False, domain_rand=False, push_robots=False,

@@ -46,6 +46,7 @@ from legged_gym_dev_tpu_torch.trajgen import (
 )
 from legged_gym_dev_tpu_torch.tube import collect as tcol
 from tests.torch_robot_cases import QUADRUPED_URDF
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 B = 4
 ROM = (0.1, [-10, -10], [10, 10], [-0.5, -0.5], [0.5, 0.5])

@@ -42,6 +42,7 @@ from legged_gym_dev_tpu_torch.interop import (
     velocity_env_state_from_numpy,
 )
 from tests.torch_robot_cases import QUADRUPED_URDF
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 B = 8
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -23,6 +23,7 @@ from legged_gym_dev_tpu.solver.fast_tube import (
 )
 from legged_gym_dev_tpu_torch.solver import ALConfig, solve_tube_fast_batched
 from tests.torch_port_cases import gap_case, jax_params, torch_params
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 N, H_REV, B = 20, 10, 8
 # A draw whose scenarios all sit away from a kink of the tube: near one

@@ -395,3 +395,60 @@ def test_substep_raises_on_card_outside_its_range(card):
     torch.cuda.synchronize()
     assert sk.launches() == {"substep": 0}
     assert bool(torch.isfinite(out.v).all())
+
+
+@pytest.mark.cuda
+def test_play_exports_match_the_policy_on_card(card, tmp_path):
+    """``cli play``'s exports loaded back on the card give the inference
+    policy's actions (TorchScript, the ``torch.export`` program on a batch
+    other than its trace's, and the stateful LSTM module over 10 calls)
+    within 1e-5."""
+    from legged_gym_dev_tpu_torch.rl.networks import (
+        ActorCritic,
+        ActorCriticRecurrent,
+    )
+    from legged_gym_dev_tpu_torch.utils import export
+    from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
+
+    gen = torch.Generator().manual_seed(0)
+    ff = ActorCritic(65, 12, generator=gen).to(card)
+    obs = torch.randn(4096, 65, device=card)
+    with torch.no_grad(), fp32_matmul():
+        want = ff(obs)[0]
+        ts = torch.jit.load(export.export_policy_torchscript(
+            ff, str(tmp_path / "p.pt")), map_location=card)
+        ep = export.load_policy_exported(export.export_policy_exported(
+            ff, 65, str(tmp_path / "p.pt2")))
+        for f in (ts, ep):
+            assert float((f(obs) - want).abs().max()) <= 1e-5
+        rec = ActorCriticRecurrent(38, 4, generator=gen).to(card)
+        lstm = torch.jit.load(export.export_policy_lstm_torchscript(
+            rec, str(tmp_path / "l.pt")), map_location=card)
+        carry = rec.initial_carry(1)
+        for i in range(10):
+            x = obs[i:i + 1, :38]
+            mean, _, _, carry = rec(x, carry)
+            assert float((lstm(x) - mean).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_play_launches_the_substep_kernel_on_card(card, tmp_path):
+    """``cli.play`` on the quadruped trajectory task (test robot, B=64):
+    exactly steps x decimation K3 launches, finite signals."""
+    from legged_gym_dev_tpu_torch import cli
+    from legged_gym_dev_tpu_torch.envs import task_registry
+
+    rc = robot_cases()
+    urdf = tmp_path / "quadruped.urdf"
+    urdf.write_text(rc.QUADRUPED_URDF)
+    env = task_registry.make_env("anymal_c_trajectory", urdf_path=str(urdf),
+                                 num_envs=64, add_noise=False, device=card)
+    runner = task_registry.make_alg_runner(env, "anymal_c_trajectory",
+                                           log_root=str(tmp_path / "logs"))
+    sk.reset_launches()
+    out = cli.play(env, runner, 5, mat=str(tmp_path / "play.mat"))
+    torch.cuda.synchronize()
+    assert sum(sk.launches_by_nj().values()) == 5 * env.sim.decimation
+    log = out["logger"].state_log
+    assert len(log["dof_pos"]) == 5
+    assert all(np.isfinite(np.stack(v)).all() for v in log.values())

@@ -56,6 +56,7 @@ from legged_gym_dev_tpu_torch.tube.train import (
     train_tube,
 )
 from tests.torch_port_cases import PROB, ROM_ARGS, gap_case
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 H_FWD, H_REV, B = 20, 5, 4
 # A draw whose scenarios sit away from a kink of the learned tube.

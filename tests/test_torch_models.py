@@ -12,6 +12,7 @@ from legged_gym_dev_tpu.tube.models import MLP as JaxMLP
 from legged_gym_dev_tpu_torch.interop import mlp_from_numpy
 from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
 from tests.torch_port_cases import mlp_weights
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 CONFIGS = [  # (activation, final activation, out_scale)

@@ -302,3 +302,36 @@ def test_planning_entry_points_raise_without_card(monkeypatch, tmp_path):
             call()
     out = solve_tube(p, tube, N, 4, one, device="cpu")
     assert out.z.device.type == "cpu"
+
+
+def test_scan_sees_the_play_and_reference_slice():
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for needed in ("legged_gym_dev_tpu_torch/utils/logger.py",
+                   "legged_gym_dev_tpu_torch/utils/export.py",
+                   "legged_gym_dev_tpu_torch/utils/profiling.py",
+                   "legged_gym_dev_tpu_torch/utils/grids.py",
+                   "legged_gym_dev_tpu_torch/solver/block_tridiag.py",
+                   "legged_gym_dev_tpu_torch/trajgen/generator.py",
+                   "legged_gym_dev_tpu_torch/sim/dynamics.py"):
+        assert needed in files
+    assert ("legged_gym_dev_tpu_torch.solver.block_tridiag"
+            in _imported_modules(PACKAGE / "solver" / "fast_tube.py"))
+
+
+def test_play_entry_points_raise_without_card(monkeypatch, tmp_path):
+    """``cli play`` without ``--cpu`` raises on a machine with no card;
+    so does the hopper preset with a named weight sampler."""
+    from legged_gym_dev_tpu_torch import cli
+    from legged_gym_dev_tpu_torch.envs.presets import (
+        make_hopper_trajectory_env,
+    )
+    from tests.torch_robot_cases import HOPPER_URDF
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["play", "--task", "rom_tracking", "--num-envs", "2",
+                  "--steps", "1", "--log-root", str(tmp_path / "logs")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_hopper_trajectory_env(
+            urdf_path=HOPPER_URDF, num_envs=2,
+            weight_sampler="UniformWeightSamplerTurnBiased")

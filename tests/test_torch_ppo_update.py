@@ -35,6 +35,7 @@ from legged_gym_dev_tpu_torch.rl.ppo import (
     normalized,
     ppo_update,
 )
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 T, B, O, A = 6, 16, 38, 4
 HIDDEN = (128, 64, 32)

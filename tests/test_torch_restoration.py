@@ -30,6 +30,7 @@ from legged_gym_dev_tpu_torch.solver import (
     staged_bounds,
 )
 from tests.torch_port_cases import jax_params, torch_params
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 N, H_REV = 20, 10
 PROB = PROBLEM_DICT["gap"]

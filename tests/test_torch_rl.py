@@ -33,6 +33,7 @@ from legged_gym_dev_tpu_torch.rl import (
 from legged_gym_dev_tpu_torch.rl import networks as tnet
 from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
 from tests.torch_robot_cases import QUADRUPED_URDF
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("hidden", [(512, 256, 128), (64, 32)])

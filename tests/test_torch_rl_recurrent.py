@@ -31,6 +31,7 @@ from legged_gym_dev_tpu_torch.rl.networks import ActorCriticRecurrent
 from legged_gym_dev_tpu_torch.rl.ppo import PPOConfig
 from legged_gym_dev_tpu_torch.rl.ppo_recurrent import ppo_update_recurrent
 from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 O, A, H = 38, 4, 32
 TOL = dict(rtol=1e-5, atol=1e-5)

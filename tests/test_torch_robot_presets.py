@@ -25,6 +25,7 @@ from tests.torch_robot_cases import (
     QUADRUPED_URDF,
     write_actuator_net,
 )
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 NEW_TASKS = ("a1_velocity", "anymal_c_velocity", "anymal_b_velocity",

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from legged_gym_dev_tpu.core import make_rom as jax_make_rom
 from legged_gym_dev_tpu_torch.core import ROM_REGISTRY, make_rom
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 ATOL = 1e-6
 ROMS = {

@@ -36,6 +36,7 @@ from legged_gym_dev_tpu_torch.interop import (
     rom_tracking_env_state_from_numpy,
 )
 from legged_gym_dev_tpu_torch.rl.ppo import PPOConfig
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 B = 16
 TOL = dict(rtol=1e-6, atol=1e-6)

@@ -34,6 +34,7 @@ from legged_gym_dev_tpu_torch.rl.runner import (
 )
 from legged_gym_dev_tpu_torch.utils import config as tconfig
 from tests.torch_robot_cases import HOPPER_URDF
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs" / "rl"
 

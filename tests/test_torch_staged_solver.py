@@ -30,6 +30,7 @@ from legged_gym_dev_tpu_torch.solver import (
 from legged_gym_dev_tpu_torch.solver import staged_scalar as tss
 from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
 from tests.torch_port_cases import gap_case, jax_params, torch_params
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 N, H_REV = 20, 10
 S, b = N + 1, 5

@@ -26,6 +26,7 @@ from tests.torch_robot_cases import (
     torch_sim,
     torch_state,
 )
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 FIELDS = ("base_pos", "base_quat", "q", "v")

@@ -27,6 +27,7 @@ from legged_gym_dev_tpu.utils import terrain as jterrain
 from legged_gym_dev_tpu_torch.interop import terrain_from_numpy
 from legged_gym_dev_tpu_torch.sim.contact import ContactParams, contact_forces
 from legged_gym_dev_tpu_torch.utils import terrain as tterrain
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 ALL_FAMILIES = (0.1, 0.1, 0.15, 0.15, 0.1, 0.2, 0.1, 0.1)
 FORMS = {

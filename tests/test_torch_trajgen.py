@@ -27,6 +27,7 @@ from legged_gym_dev_tpu_torch.trajgen import (
     UniformSampleHoldDT,
     UniformWeightSampler,
 )
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 ATOL = 1e-6
 B = 64

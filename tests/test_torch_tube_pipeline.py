@@ -54,6 +54,7 @@ from legged_gym_dev_tpu_torch.tube import datasets as tds
 from legged_gym_dev_tpu_torch.tube import losses as tlo
 from legged_gym_dev_tpu_torch.tube import train as ttr
 from legged_gym_dev_tpu_torch.utils.config import load_config, tube_spec
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 B = 16
 

@@ -25,6 +25,7 @@ from legged_gym_dev_tpu.tube import shards as jsh
 from legged_gym_dev_tpu_torch import native
 from legged_gym_dev_tpu_torch.tube import datasets as tds
 from legged_gym_dev_tpu_torch.tube import shards as tsh
+from tests.torch_port_cases import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 VARIANTS = ["scalar", "scalar_recursive", "vector", "error"]

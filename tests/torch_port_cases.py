@@ -29,6 +29,14 @@ PLANT_ARGS = (PROB["dt"], [-np.inf, -np.inf, -0.3, -0.3],
               [np.inf, np.inf, 0.3, 0.3], [-0.5, -0.5], [0.5, 0.5])
 
 
+def jax_call(fn, *args):
+    """``fn(*args)`` of a JAX reference, compiled by XLA without backend
+    (LLVM) optimization: large autodiff graphs compile faster, and the
+    values are those of the same operations in fp32."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})(*args)
+
+
 def mlp_weights(n_in, n_out, units, seed, layers=2):
     """Kaiming-uniform weights as (in, out) arrays, last layer x0.5 and
     bias -2 (tube widths near softplus(-2) ~ 0.13)."""
