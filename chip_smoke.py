@@ -142,11 +142,37 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    the 12-joint robot, within 1e-4) and ``[array]`` (the array-form staged
    solver against the entry form, l1, B=256, N=50, 20x10: feasible >=
    0.98, co-feasible plans within 2e-3 on >= 90%);
-15. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
+15. mesh phase (main path of the mesh slice, on a mesh of 4 shards of
+   the one card, ``make_mesh(4, devices=[card] * 4)``, and over every card
+   where there are several): ``[mesh substep]`` K3's sharded route
+   (``substep_sharded``) on the quadruped at B=4096 with per-env DR rows
+   against its plain version shard by shard (max relative error <=
+   TOL_REL) and one unsharded K3 launch (<= 1e-6), exactly one launch per
+   shard, each output on its shard's device; its wrapper time beside the
+   unsharded one, the plain version's and K3's bound; ``[mesh train]`` ``cli train --task anymal_c_velocity``
+   (``configs/rl/default.yaml``, the test quadruped, B=4096, 2
+   iterations) unsharded, with ``--dp-devices 1`` (bit for bit the
+   unsharded run) and ``--dp-devices <cards>`` where there are several,
+   then ``OnPolicyRunner(mesh=<4 shards>)``: learning env-steps/s, K3
+   launches exactly 4 x 24 x 4 x 2, one per shard and substep, replicas
+   bit-identical after every update, finite metrics; ``[mesh
+   curriculum]`` Cassie's command curriculum, one sharded step against
+   one unsharded step (equal ranges on every shard); ``[mesh solve]`` l1
+   at B=2048, N=50, 20x10 on the 4 shards and on a (2, 2) host mesh
+   against unsharded (plans within 1e-5, 4x the bt_solve launches, equal
+   verdict counts, certified on the 4 shards without the escalated
+   restorations, solves/s); ``[mesh loop]`` the
+   l1 closed loop at B=1024 for 3 ticks (executed z within 1e-5);
+   ``[mesh collect]`` a
+   ``rom_tracking`` collect step at B=4096 (equal on the envs that drew
+   nothing);
+16. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
    joint count on rows of their own, the instances no robot runs measured
    on their chains in the substep phase; ``bt_solve``'s row counts the
-   other block sizes' launches), then, last, ``{"ok": true, "device":
-   {...}}``.
+   other block sizes' launches; ``substep_sharded``, K3 launched shard by
+   shard, a row of its own with the mesh runs' launches, which the
+   ``substep`` row does not count again), then, last, ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once.
@@ -154,9 +180,9 @@ result line. Without a CUDA device it exits non-zero at once.
 Usage: ``python3 chip_smoke.py`` (all phases), or
 ``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
 debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl,
-train, train_rnn, tube, plan, robots, play; ``--phases plan`` is the
+train, train_rnn, tube, plan, robots, play, mesh; ``--phases plan`` is the
 planning slice alone, ``--phases robots`` the robots slice, ``--phases
-play`` the play slice).
+play`` the play slice, ``--phases mesh`` the mesh slice).
 """
 import argparse
 import concurrent.futures
@@ -171,7 +197,7 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl",
-          "train", "train_rnn", "tube", "plan", "robots", "play")
+          "train", "train_rnn", "tube", "plan", "robots", "play", "mesh")
 N, H_REV = 50, 10
 B_L1, B_NN = 2048, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -181,12 +207,14 @@ SOURCES = {
     "bt_factor": "legged_gym_dev_tpu_torch/csrc/block_tridiag.cu",
     "bt_msolve": "legged_gym_dev_tpu_torch/csrc/block_tridiag.cu",
     "substep": "legged_gym_dev_tpu_torch/csrc/substep.cu",
+    "substep_sharded": "legged_gym_dev_tpu_torch/csrc/substep.cu",
 }
 REPLACES = {
     "bt_solve": "legged_gym_dev_tpu/ops/pallas_block_tridiag.py:182",
     "bt_factor": "legged_gym_dev_tpu/ops/pallas_block_tridiag.py:463",
     "bt_msolve": "legged_gym_dev_tpu/ops/pallas_block_tridiag.py:481",
     "substep": "legged_gym_dev_tpu/ops/pallas_substep.py:237",
+    "substep_sharded": "legged_gym_dev_tpu/ops/pallas_substep.py:257",
 }
 TOL_REL = 1e-4   # kernel vs plain version: max |diff| / max |plain|
 B_RL = 4096      # envs of the RL rollout and of the substep check
@@ -909,15 +937,7 @@ def substep_record(robot, dev, tag="substep", quick=False):
     k_dev, *k_q = device_ms(launch)
     p_ms = time_ms(lambda: sk.substep_plain(sim, st, tau),
                    1 if quick else 3, warmup=0 if quick else 1)
-    ops = substep_ops_per_env(robot) * B_RL
-    # each input read once: the state, the DR values as stored (not as
-    # broadcast), the model and schedules; each output written once
-    inputs = [st.base_pos, st.base_quat, st.q, st.v, tau, params, topo]
-    nbytes = 4 * (sum(distinct(t) for t in inputs + views
-                      if t is not None) + sum(o.numel() for o in outs))
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    bms, by = 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o
-                                    else "operations")
+    bms, by, nbytes, ops = k3_bound(robot, sim, st, tau, dev)
     print(f"[{tag}] {robot} B={B_RL} nj={nj} nc={nc}: wrapper "
           f"{ms:.4f} ms, kernel alone {k_ms:.4f} ms (device "
           f"{fmt_ms(k_dev, *k_q)}), plain {p_ms:.4f} "
@@ -927,6 +947,29 @@ def substep_record(robot, dev, tag="substep", quick=False):
                 kernel_device_ms=k_dev, plain_ms=p_ms, bound_ms=bms,
                 bound_by=by, library_ms=None, shape=[B_RL, nj, nc],
                 ops_per_env=ops // B_RL, bytes=nbytes)
+
+
+def k3_bound(robot, sim, st, tau, dev):
+    """(bound ms, "bytes" or "operations", bytes, operations) of one K3
+    call on these inputs: each input read once (the state, the DR values
+    as stored, not as broadcast, the model and schedules), each output
+    written once; the operations counted per env from the plain graph."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+
+    B = st.base_pos.shape[0]
+    nj, nv = sim.model.nj, sim.model.nv
+    outs = [torch.empty((B, n), device=dev) for n in (3, 4, nj, nv)]
+    _, views = sk.substep_args(sim, st, tau, outs)
+    params, topo = sk._model_tensors(sim, dev)
+    ops = substep_ops_per_env(robot) * B
+    inputs = [st.base_pos, st.base_quat, st.q, st.v, tau, params, topo]
+    nbytes = 4 * (sum(distinct(t) for t in inputs + views
+                      if t is not None) + sum(o.numel() for o in outs))
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations",
+            nbytes, ops)
 
 
 def rl_policy(num_obs, num_actions, seed, dev):
@@ -2583,6 +2626,475 @@ def play_phase(dev):
     return k3, bt
 
 
+# ---------------------------------------------------------------------------
+# mesh slice: data-parallel training and solving over a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4          # the repeated-device mesh of the one card
+# The verdicts of the sharded solve run without the escalated restorations
+# (``escalate=False``, on both sides): the verdict pass issues a fixed
+# count of small launches whatever the batch (polish loops of 256, 128 and
+# 512 steps, restoration solves), so its wall is the host's and each shard
+# costs about what the whole batch does; with escalation that is 35-55 s a
+# shard. The escalated pass runs unsharded in the l1 phase.
+B_MESH_LOOP = 1024
+
+
+def mesh_of(dev, n=MESH_SHARDS):
+    from legged_gym_dev_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, devices=[dev] * n)
+
+
+def mesh_substep(dev):
+    """K3's sharded route (``substep_sharded``) on the 4-shard mesh of the
+    card against its plain version shard by shard on the same inputs (max
+    relative error <= TOL_REL) and against one unsharded K3 launch (<=
+    1e-6): the ANYmal-C-topology quadruped (nj=12) at B=4096 with per-env
+    DR rows from a seed (base payload mass, friction, contact stiffness
+    and damping); one launch per shard, each output on its shard's
+    device; wrapper times sharded and unsharded, the plain version's, K3's
+    bound at the same work."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+    from legged_gym_dev_tpu_torch.parallel.mesh import (
+        Sharded,
+        gather,
+        shard_batch,
+    )
+
+    rc = robot_cases()
+    mesh = mesh_of(dev)
+    inp = rc.substep_inputs("quadruped", B_RL, seed=13, dr=True)
+    sim = rc.torch_sim("quadruped", dev, inp)
+    st, tau = rc.torch_state(inp, dev)
+    st_sh = shard_batch(st, mesh, batch_size=B_RL)
+    tau_sh = shard_batch(tau, mesh, batch_size=B_RL)
+    ref = sk.substep(sim, st, tau)
+    sk.reset_launches()
+    out = sk.substep_sharded(sim, st_sh, tau_sh, mesh, "dp")
+    torch.cuda.synchronize()
+    n_k3 = sk.launches()["substep"]
+    check(n_k3 == MESH_SHARDS,
+          f"[mesh substep] K3 launches {n_k3} != {MESH_SHARDS}")
+    check([s.base_pos.device for s in out] == list(mesh.devices.flat),
+          "[mesh substep] an output off its shard's device")
+    shard_sims = sim.shard(mesh)
+    plain = gather(Sharded([sk.substep_plain(s, a, b) for s, a, b in
+                            zip(shard_sims, st_sh, tau_sh)], mesh, B_RL))
+    got = gather(out)
+    fields = ("base_pos", "base_quat", "q", "v")
+    errs_ = {f: errs(getattr(got, f), getattr(plain, f)) for f in fields}
+    errs_k3 = {f: errs(getattr(got, f), getattr(ref, f)) for f in fields}
+    for f in fields:
+        check(bool(torch.isfinite(getattr(got, f)).all()),
+              f"[mesh substep] non-finite {f}")
+        check(errs_[f][1] <= TOL_REL,
+              f"[mesh substep] {f} rel err {errs_[f][1]} against plain")
+        check(errs_k3[f][1] <= 1e-6, f"[mesh substep] {f} rel err "
+              f"{errs_k3[f][1]} against unsharded K3 > 1e-6")
+    ms_sh = time_ms(lambda: sk.substep_sharded(sim, st_sh, tau_sh, mesh,
+                                               "dp"), 20)
+    # the call's 4 launches on the device, queued behind a sleep
+    dev_ms, *dev_q = device_ms(lambda: sk.substep_sharded(
+        sim, st_sh, tau_sh, mesh, "dp"))
+    ms = time_ms(lambda: sk.substep(sim, st, tau), 20)
+    p_ms = time_ms(lambda: [sk.substep_plain(s, a, b) for s, a, b in
+                            zip(shard_sims, st_sh, tau_sh)], 3, warmup=1)
+    bms, by, nbytes, ops = k3_bound("quadruped", sim, st, tau, dev)
+    rec = dict(max_abs_err=max(e[0] for e in errs_.values()),
+               max_rel_err=max(e[1] for e in errs_.values()),
+               max_abs_err_vs_unsharded_k3=max(e[0] for e in
+                                               errs_k3.values()),
+               max_rel_err_vs_unsharded_k3=max(e[1] for e in
+                                               errs_k3.values()), ms=ms_sh,
+               device_ms=dev_ms, device_ms_shown=fmt_ms(dev_ms, *dev_q),
+               unsharded_ms=ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
+               library_ms=None, shards=MESH_SHARDS, shape=[B_RL, 12],
+               bytes=nbytes, ops=ops)
+    print("[mesh substep] " + json.dumps(rec))
+    return rec
+
+
+def mesh_learn_runner(args_extra, cfg_path, work, iters, cli):
+    args = cli.build_parser().parse_args([
+        "train", "--config", str(cfg_path), "--task", "anymal_c_velocity",
+        "--log-root", str(work / "logs"), "--num-envs", str(B_RL),
+        "--max-iterations", str(iters)] + args_extra)
+    runner, n_iter = cli.make_runner(args)
+    check(n_iter == iters, f"[mesh train] {n_iter} iterations")
+    return runner
+
+
+def mesh_learn(runner, iters, tag):
+    """``iters`` learn iterations one at a time (the replicas checked equal
+    after each update); (history, wall s, K3 launches)."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    wall, hist = 0.0, []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        hist = runner.learn(1)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        ref = runner.models[0].state_dict()
+        for m in list(runner.models)[1:]:
+            check(all(torch.equal(v, ref[k])
+                      for k, v in m.state_dict().items()),
+                  f"[mesh train] {tag}: a replica differs after an update")
+    for h in hist:
+        for k in ("mean_reward", "loss", "policy_loss", "value_loss", "kl"):
+            check(bool(np.isfinite(h[k])), f"[mesh train] {tag}: {k}")
+    return hist, wall, sk.launches()["substep"]
+
+
+def mesh_train(dev, work):
+    """``cli train --task anymal_c_velocity`` (the test quadruped, B=4096,
+    ``configs/rl/default.yaml``) through ``cli.make_runner``, 2 iterations
+    each: unsharded, with ``--dp-devices 1`` (a 1-device mesh: bit for bit
+    the unsharded run) and, where there are several cards, with
+    ``--dp-devices <cards>``; then ``OnPolicyRunner(mesh=<4 shards of the
+    card>)`` on the same config: K3 launches exactly 4 x 24 x 4 x 2 (one
+    per shard and substep), replicas bit-identical after every update.
+    Returns the record and the K3 launches of the unsharded run and of
+    the sharded runs."""
+    import torch
+
+    from legged_gym_dev_tpu_torch import cli
+    from legged_gym_dev_tpu_torch.rl.runner import OnPolicyRunner
+
+    rc = robot_cases()
+    urdf = work / "quadruped.urdf"
+    urdf.write_text(rc.QUADRUPED_URDF)
+    cfg_path = work / "anymal_c_velocity.yaml"
+    cfg_path.write_text(f"defaults:\n  - {ROOT / 'configs/rl/default.yaml'}"
+                        f"\n  - _self_\nenv:\n  urdf_path: {urdf}\n")
+    cards, iters = torch.cuda.device_count(), 2
+    steps = iters * 24 * B_RL
+    keys = ("mean_reward", "loss", "kl")
+    out, runs, k3 = {"cards": cards}, {}, 0
+    for name, extra in (("unsharded", []), ("dp1", ["--dp-devices", "1"]),
+                        *([("dp_cards", ["--dp-devices", str(cards)])]
+                          if cards > 1 else [])):
+        runner = mesh_learn_runner(extra, cfg_path, work, iters, cli)
+        n = 1 if name == "unsharded" else runner.mesh.size
+        check(name == "unsharded" or all(
+            d.type == "cuda" for d in runner.mesh.devices.flat),
+            f"[mesh train] {name}: a shard off the card")
+        hist, wall, k3_n = mesh_learn(runner, iters, name)
+        want = iters * 24 * 4 * n
+        check(k3_n == want, f"[mesh train] {name}: K3 {k3_n} != {want}")
+        if name == "unsharded":
+            k3_u = k3_n
+        else:
+            k3 += k3_n
+        runs[name] = hist
+        out[f"{name}_env_steps_per_s"] = steps / wall
+        out[f"{name}_metrics"] = [{k: h[k] for k in keys} for h in hist]
+    same = all(a[k] == b[k] for a, b in zip(runs["unsharded"], runs["dp1"])
+               for k in ("loss", "mean_reward", "kl", "value_loss"))
+    check(same, "[mesh train] the 1-device mesh differs from the unsharded "
+          "runner")
+    sharded = OnPolicyRunner(runner.env, model=type(runner.model)(
+        runner.env.num_obs, runner.env.num_actions,
+        runner.model.actor_hidden_dims, runner.model.critic_hidden_dims,
+        runner.model.activation, runner.model.init_noise_std,
+        generator=torch.Generator().manual_seed(0)), cfg=runner.cfg,
+        mesh=mesh_of(dev))
+    hist, wall, k3_4 = mesh_learn(sharded, iters, "4 shards")
+    want = MESH_SHARDS * 24 * 4 * iters
+    check(k3_4 == want, f"[mesh train] 4 shards: K3 {k3_4} != {want}")
+    k3 += k3_4
+    out.update(mesh4_env_steps_per_s=steps / wall,
+               mesh4_s_per_iteration=wall / iters,
+               mesh4_metrics=[{k: h[k] for k in keys} for h in hist],
+               one_device_mesh_bit_identical=same, k3_launches_mesh4=k3_4)
+    print("[mesh train] " + json.dumps(out))
+    return out, k3_u, k3
+
+
+def mesh_curriculum(dev):
+    """Cassie's command curriculum (the test biped, B=4096, 4 shards): one
+    step from a state in which some envs time out with tracking sums set
+    so that the whole batch widens the ranges while shard 1 alone would
+    not; the sharded step's ranges equal the unsharded step's on every
+    shard."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.envs import ShardedEnv, presets
+    from legged_gym_dev_tpu_torch.parallel.mesh import (
+        shard_batch,
+        shard_generators,
+    )
+
+    rc = robot_cases()
+    env = presets.make_cassie_env(urdf_path=rc.CASSIE_URDF, num_envs=B_RL,
+                                  add_noise=False, device=dev)
+    check(env.command_curriculum, "[mesh curriculum] curriculum off")
+    mesh = mesh_of(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state, _ = env.reset(gen)
+    L, b = env.max_episode_length, B_RL // MESH_SHARDS
+    good = 1.2 * dict(env.reward_scales)["tracking_lin_vel"] * env.dt * L
+    done_envs = [0, 1, 2, b + 5]          # shard 0: 3 good; shard 1: 1 bad
+    step = state.episode_step.clone()
+    step[done_envs] = L - 1
+    track = torch.zeros(B_RL, device=dev)
+    track[:3] = good
+    state = state.replace(episode_step=step, episode_sums=dict(
+        state.episode_sums, tracking_lin_vel=track))
+    actions = torch.zeros(B_RL, env.num_actions, device=dev)
+    ref, tr = env.step(state, actions)
+    senv = ShardedEnv(env, mesh)
+    shards = senv.shard_state(state, shard_generators(mesh, 0))
+    out, trs = senv.step(shards, shard_batch(actions, mesh))
+    torch.cuda.synchronize()
+    widened = not torch.equal(ref.command_ranges, state.command_ranges)
+    equal = all(torch.equal(s.command_ranges, ref.command_ranges)
+                for s in out)
+    rec = dict(resets=int(tr.done.sum()), widened=widened,
+               equal_on_every_shard=equal,
+               command_ranges=ref.command_ranges.cpu().tolist())
+    print("[mesh curriculum] " + json.dumps(rec))
+    check(widened, "[mesh curriculum] the ranges did not widen")
+    check(equal, "[mesh curriculum] a shard's ranges differ")
+    return rec
+
+
+def mesh_solve(dev):
+    """l1 at B=2048, N=50, 20x10 (bench.py's gap batch) on the 4-shard
+    mesh and on a (2, 2) host mesh of the card against the unsharded
+    solve: plans within 1e-5, bt_solve launched 4x as often; the 4-shard
+    solve's verdicts, certified on its 4 shards without the
+    escalated restorations, in counts equal to the unsharded pass's.
+    Returns the record and the sharded runs' bt_solve launches."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.parallel.mesh import (
+        gather,
+        make_host_mesh,
+        map_shards,
+        shard_batch,
+    )
+    from legged_gym_dev_tpu_torch.solver import (
+        VERDICT_NAMES,
+        ALConfig,
+        StagedProblem,
+        certify_staged_batched,
+        solve_tube_fast_batched,
+        staged_bounds,
+    )
+
+    B = B_L1
+    p = bench_batch(B, "l1", dev)
+    cfg = ALConfig(linsolve="pallas")
+    sp = StagedProblem(n=2, m=2, N=N, K=2, tube_kind="l1", scaling=0.5,
+                       track_ref=False)
+
+    def solve(pp):      # device None: the shard's card (map_shards)
+        return solve_tube_fast_batched(pp, N, H_REV, tube_kind="l1",
+                                       scaling=0.5, cfg=cfg,
+                                       warm_start="interpolate",
+                                       tube_ws="evaluate")
+
+    def certify(pp, o):
+        lb, ub = staged_bounds(pp, 2, 2, N)
+        return certify_staged_batched(sp, pp, o.sol.x.reshape(
+            pp.batch_size, N + 1, -1), o.sol.viol, lb, ub,
+            escalate=False).verdict
+
+    def timed_solve(fn):
+        btk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn()
+        torch.cuda.synchronize()
+        return o, time.perf_counter() - t0, btk.launches()["bt_solve"]
+
+    ref, wall_u, k1_u = timed_solve(lambda: solve(p))
+    mesh = mesh_of(dev)
+    out_sh, wall_4, k1_4 = timed_solve(lambda: map_shards(
+        solve, shard_batch(p, mesh, batch_size=B)))
+    host = make_host_mesh(2, 2, devices=[dev] * 4)
+    out_h, wall_h, k1_h = timed_solve(lambda: map_shards(
+        solve, shard_batch(p, host, axis=("dcn", "ici"), batch_size=B)))
+    z4, zh = gather(out_sh).z, gather(out_h).z
+    dz4 = float((z4 - ref.z).abs().max())
+    dzh = float((zh - ref.z).abs().max())
+    check(dz4 <= 1e-5, f"[mesh solve] 4 shards: plans differ by {dz4}")
+    check(dzh <= 1e-5, f"[mesh host] (2, 2): plans differ by {dzh}")
+    check(k1_4 == MESH_SHARDS * k1_u and k1_h == MESH_SHARDS * k1_u,
+          f"[mesh solve] bt_solve launches {k1_4}, {k1_h} != 4 x {k1_u}")
+    t0 = time.perf_counter()
+    v4 = gather(map_shards(certify, shard_batch(p, mesh, batch_size=B),
+                           out_sh), batch_size=B).cpu().numpy()
+    cert_4 = time.perf_counter() - t0
+    counts_4 = {n: int(np.sum(v4 == i)) for i, n in enumerate(VERDICT_NAMES)}
+    t0 = time.perf_counter()
+    vu = certify(p, ref).cpu().numpy()
+    cert_u = time.perf_counter() - t0
+    counts_u = {n: int(np.sum(vu == i)) for i, n in enumerate(VERDICT_NAMES)}
+    rec = dict(batch=B, shards=MESH_SHARDS, unsharded_solves_per_s=B / wall_u,
+               mesh4_solves_per_s=B / wall_4, host2x2_solves_per_s=B / wall_h,
+               max_abs_dz_mesh4=dz4, max_abs_dz_host2x2=dzh,
+               bt_solve_launches_unsharded=k1_u, bt_solve_launches_mesh4=k1_4,
+               bt_solve_launches_host2x2=k1_h, verdicts_mesh4=counts_4,
+               verdicts_unsharded=counts_u, certify_shards=MESH_SHARDS,
+               certify_wall_sharded_s=cert_4,
+               certify_wall_unsharded_s=cert_u)
+    print("[mesh solve] " + json.dumps(rec))
+    print("[mesh host] " + json.dumps(dict(
+        mesh=dict(host.shape), solves_per_s=B / wall_h, max_abs_dz=dzh,
+        bt_solve_launches=k1_h)))
+    check(counts_4 == counts_u, f"[mesh solve] verdicts {counts_4} != "
+          f"{counts_u}")
+    return rec, k1_4 + k1_h
+
+
+def mesh_loop(dev):
+    """The l1 closed loop at B=1024 for 3 ticks (bench.py's gap batch, the
+    DoubleInt2D plant) on the 4-shard mesh against unsharded: executed z
+    within 1e-5. Returns the record and the sharded run's bt_solve
+    launches."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.core import make_rom
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.parallel.mesh import (
+        gather,
+        map_shards,
+        replicate,
+        shard_batch,
+    )
+    from legged_gym_dev_tpu_torch.solver import (
+        PROBLEM_DICT,
+        ALConfig,
+        closed_loop_tube_mpc_fast,
+    )
+
+    prob = PROBLEM_DICT["gap"]
+    B = B_MESH_LOOP
+    p = bench_batch(B, "l1", dev, seed=1)
+    robot = make_rom("DoubleInt2D", prob["dt"], [-np.inf, -np.inf, -0.3, -0.3],
+                     [np.inf, np.inf, 0.3, 0.3], [-0.5, -0.5], [0.5, 0.5],
+                     device=dev)
+    mesh = mesh_of(dev)
+
+    def run(pp, rob):
+        return closed_loop_tube_mpc_fast(
+            pp, rob, tube_kind="l1", scaling=0.5, H=3, N=N, H_rev=H_REV,
+            cfg_first=ALConfig(linsolve="pallas"),
+            cfg_loop=ALConfig(outer_iters=4, inner_iters=6,
+                              linsolve="pallas"),
+            warm_start="interpolate", tube_ws="evaluate")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = run(p, robot)
+    torch.cuda.synchronize()
+    wall_u = time.perf_counter() - t0
+    btk.reset_launches()
+    t0 = time.perf_counter()
+    out = gather(map_shards(run, shard_batch(p, mesh, batch_size=B),
+                            replicate(robot, mesh)), batch_size=B)
+    torch.cuda.synchronize()
+    wall_4 = time.perf_counter() - t0
+    k1 = btk.launches()["bt_solve"]
+    dz = float((out[0] - ref[0]).abs().max())
+    rec = dict(batch=B, ticks=3, shards=MESH_SHARDS, max_abs_dz=dz,
+               unsharded_ms_per_tick=1e3 * wall_u / 4,
+               mesh4_ms_per_tick=1e3 * wall_4 / 4,
+               adopted_equal=bool(torch.equal(out[5], ref[5])),
+               bt_solve_launches=k1)
+    print("[mesh loop] " + json.dumps(rec))
+    check(all(bool(torch.isfinite(t).all()) for t in out[:5]),
+          "[mesh loop] non-finite trace")
+    check(dz <= 1e-5, f"[mesh loop] executed z differs by {dz}")
+    return rec, k1
+
+
+def mesh_collect(dev):
+    """A ``rom_tracking`` collect step (4 steps of the ROM sim under its PD
+    tracker) at B=4096 on the 4-shard mesh, each shard with its own
+    generator, against unsharded from the same state: finite, equal on
+    every env that resampled nothing in the window."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.controllers import DoubleSingleTracking
+    from legged_gym_dev_tpu_torch.envs import presets
+    from legged_gym_dev_tpu_torch.envs.base import shard_env_state
+    from legged_gym_dev_tpu_torch.parallel.mesh import (
+        Sharded,
+        gather,
+        map_shards,
+        shard_generators,
+    )
+
+    mesh = mesh_of(dev)
+    sim = presets.make_rom_tracking_env(num_envs=B_RL, device=dev).sim
+    policy = DoubleSingleTracking.create(4.0, 4.0, sim.model.clip_v_z)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = sim.reset(gen)
+    shards = shard_env_state(state, mesh, B_RL, shard_generators(mesh, 1))
+
+    def collect(s_, st):
+        for _ in range(4):
+            st = s_.step(st, policy(s_.get_observations(st)))
+        return st, s_.rom.proj_z(st.root_states)
+
+    ref, proj = collect(sim, state)
+    t0 = time.perf_counter()
+    out = gather(map_shards(collect, Sharded(sim.shard(mesh), mesh), shards),
+                 batch_size=B_RL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    quiet = ref.traj_gen.t_final == state.traj_gen.t_final
+    dz = float((out[1][quiet] - proj[quiet]).abs().max())
+    rec = dict(batch=B_RL, steps=4, quiet_envs=int(quiet.sum()),
+               max_abs_diff_quiet=dz, finite=bool(torch.isfinite(out[1])
+                                                   .all()),
+               mesh4_env_steps_per_s=4 * B_RL / wall)
+    print("[mesh collect] " + json.dumps(rec))
+    check(rec["finite"], "[mesh collect] non-finite")
+    check(0 < rec["quiet_envs"], "[mesh collect] every env resampled")
+    check(dz <= 1e-5, f"[mesh collect] quiet envs differ by {dz}")
+    return rec
+
+
+def mesh_phase(dev):
+    """The mesh slice's main path on one card (a 4-shard mesh of it; over
+    the real cards too where there are several). Returns K3's sharded
+    record and the phase's launches: K3 and bt_solve of the sharded
+    runs."""
+    import shutil
+
+    work = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    rec = mesh_substep(dev)
+    _, k3_u, k3 = mesh_train(dev, work)
+    mesh_curriculum(dev)
+    _, k1_solve = mesh_solve(dev)
+    _, k1_loop = mesh_loop(dev)
+    mesh_collect(dev)
+    # K3 counts where it launches: the sharded runs' launches are
+    # substep_sharded's, the unsharded run's the substep row's
+    launches = {"substep": k3_u, "substep_sharded": k3,
+                "bt_solve": k1_solve + k1_loop}
+    print(f"[launches] mesh path: {json.dumps(launches)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return rec, launches
+
+
 def kernels_alone_ms(b, dev):
     """The three block-tridiagonal kernels alone (CUDA events over
     back-to-back launches) at block size b and the zoo's shapes, each
@@ -2843,6 +3355,13 @@ def main(argv=None):
             main_launches[name] = main_launches.get(name, 0) + n
         for k, v in bt_play.items():
             main_launches[k] += v
+    if "mesh" in phases:
+        krec["substep_sharded"], mesh_launches = mesh_phase(dev)
+        for k, v in mesh_launches.items():
+            main_launches[k] = main_launches.get(k, 0) + v
+        check(mesh_launches["substep_sharded"] > 0
+              and mesh_launches["bt_solve"] > 0,
+              "mesh path: no substep_sharded or bt_solve launch")
     print(f"[launches] main path: {json.dumps(main_launches)}")
     if "ref" in phases:
         reference_check(dev)
@@ -2865,7 +3384,7 @@ def main(argv=None):
         for name in ("bt_solve", "bt_factor", "bt_msolve", "bt_solve_b10",
                      "bt_factor_b10", "bt_msolve_b10", "substep",
                      *(f"substep_nj{nj}" for nj in range(1, 25)
-                       if nj != 12)):
+                       if nj != 12), "substep_sharded"):
             if name not in krec:
                 continue
             r = krec[name]

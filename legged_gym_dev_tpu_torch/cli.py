@@ -20,7 +20,8 @@ Counterpart of those subcommands of ``legged_gym_dev_tpu/cli.py``
 
 ``train`` trains a task of the registry through ``make_alg_runner`` and
 ``OnPolicyRunner.learn``; the YAML's ``env`` section holds the preset's
-arguments, ``env.urdf_path`` among them. ``play`` resumes a trained run
+arguments, ``env.urdf_path`` among them; ``--dp-devices N`` trains
+data-parallel over N CUDA cards (N CPU shards with ``--cpu``). ``play`` resumes a trained run
 (the most recent under ``<log-root>/<task>``, or ``--load``), rolls its
 deterministic policy without observation noise, logs env 0's signals
 (``--mat``, ``--plot``) and exports the policy (``--export``: TorchScript
@@ -89,10 +90,18 @@ def make_runner(args):
                        "critic_hidden_dims": [128, 64, 32]},
         num_actions=env.num_actions, num_obs=env.num_obs,
         generator=torch.Generator().manual_seed(seed))
+    mesh = None
+    if args.dp_devices:
+        from .parallel.mesh import make_mesh
+
+        # --cpu: N CPU shards (JAX's virtual CPU mesh); else N CUDA cards,
+        # raising with fewer present
+        mesh = make_mesh(args.dp_devices, devices=(
+            [torch.device("cpu")] * args.dp_devices if args.cpu else None))
     runner = task_registry.make_alg_runner(
         env, task, log_root=args.log_root, run_name=args.run_name,
         seed=seed, resume=args.resume, load_run=args.load, model=model,
-        train_cfg=train_cfg)
+        train_cfg=train_cfg, mesh=mesh)
     return runner, max_iterations
 
 
@@ -681,6 +690,9 @@ def build_parser():
     t.add_argument("--run-name", default="")
     t.add_argument("--resume", action="store_true")
     t.add_argument("--load", default="latest")
+    t.add_argument("--dp-devices", type=int, default=0,
+                   help="data-parallel training over an N-device mesh "
+                        "(envs sharded, params replicated)")
     t.set_defaults(fn=cmd_train)
 
     pl = sub.add_parser("play")

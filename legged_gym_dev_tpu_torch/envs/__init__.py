@@ -1,4 +1,4 @@
-from .base import Transition, guard_finite_state
+from .base import ShardedEnv, Transition, guard_finite_state
 from .registry import TaskRegistry, task_registry
 from . import presets  # noqa: F401  (registers preset tasks)
 from .legged_robot_trajectory import (
@@ -8,6 +8,7 @@ from .legged_robot_trajectory import (
 from .legged_robot_velocity import LeggedRobotVelocityEnv, VelocityEnvState
 
 __all__ = [
+    "ShardedEnv",
     "Transition",
     "guard_finite_state",
     "TaskRegistry",

@@ -49,7 +49,7 @@ from ..sim.kinematics import contact_points
 from ..sim.robot_sim import RobotSim
 from ..trajgen.generator import TrajectoryGenerator, TrajGenState
 from ..trajgen.samplers import f32
-from .base import Transition, guard_finite_state
+from .base import Transition, guard_finite_state, shard_env
 from .legged_robot_velocity import _uniform
 
 
@@ -176,6 +176,10 @@ class HopperCommon:
     @property
     def max_episode_length(self) -> int:
         return int(round(self.episode_length_s / self.dt))
+
+    def shard(self, mesh, axis="dp") -> list:
+        """One env per shard of ``mesh`` (``envs.base.shard_env``)."""
+        return shard_env(self, mesh, axis)
 
     def _sphere_forces(self, robot: RobotState) -> torch.Tensor:
         pos, vel = contact_points(self.sim.model, robot)

@@ -64,6 +64,10 @@ class LeggedRobotTrajectoryEnv(LeggedRobotVelocityEnv):
         return self.traj_gen.rom
 
     @property
+    def reduces_batch(self) -> bool:
+        return False        # the trajectory task has no command curriculum
+
+    @property
     def n_traj(self) -> int:
         return self.traj_gen.N
 

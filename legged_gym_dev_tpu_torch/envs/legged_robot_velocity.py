@@ -29,7 +29,12 @@ from ..sim.dynamics import RobotState
 from ..sim.kinematics import contact_kinematics
 from ..sim.robot_sim import RobotSim
 from ..utils.terrain import height_scan
-from .base import Transition, guard_finite_state
+from .base import (
+    Transition,
+    guard_finite_state,
+    shard_env,
+    shard_env_state,
+)
 
 
 def classify_contacts(model, foot_name: str, penalize_on, terminate_on):
@@ -478,23 +483,41 @@ class LeggedRobotVelocityEnv:
                 raise ValueError(f"unknown reward term {name}")
         return out
 
-    def _update_command_curriculum(self, state, done, episode_sums):
+    def _update_command_curriculum(self, state, stats):
         """Widen lin-vel command ranges by 0.5 (up to +-5) when the mean
-        episode tracking reward of reset envs exceeds 80% of its max."""
+        episode tracking reward of reset envs exceeds 80% of its max.
+        ``stats`` is ``batch_stats``, summed over the whole batch."""
         if not any(n == "tracking_lin_vel" for n, _ in self.reward_scales):
             return state.command_ranges
         scale = dict(self.reward_scales)["tracking_lin_vel"] * self.dt
-        denom = torch.clamp(done.sum(), min=1)
-        mean_track = torch.sum(torch.where(
-            done, episode_sums["tracking_lin_vel"], 0.0)) / denom \
+        n_done, track = stats[0], stats[1]
+        mean_track = track / torch.clamp(n_done, min=1.0) \
             / self.max_episode_length
-        good = (mean_track > 0.8 * scale) & (done.sum() > 0)
+        good = (mean_track > 0.8 * scale) & (n_done > 0)
         delta = torch.where(good, 0.5, 0.0)
         cr = state.command_ranges.clone()
         for i in (0, 1):
             cr[i, 0] = torch.clamp(cr[i, 0] - delta, -5.0, 0.0)
             cr[i, 1] = torch.clamp(cr[i, 1] + delta, 0.0, 5.0)
         return cr
+
+    @property
+    def reduces_batch(self) -> bool:
+        """Whether ``step`` reduces over the whole batch: the command
+        curriculum does. A sharded step then runs ``step_begin`` on every
+        shard, sums ``batch_stats`` over the shards and finishes each
+        shard with ``step_end`` (``envs.base.ShardedEnv``)."""
+        return self.command_curriculum
+
+    def batch_stats(self, ctx) -> torch.Tensor:
+        """What the command curriculum reduces over the batch: (envs reset
+        this step, their summed tracking episode sums), float32."""
+        done = ctx["done"]
+        track = ctx["episode_sums"].get("tracking_lin_vel")
+        return torch.stack([
+            done.sum().to(torch.float32),
+            (torch.sum(torch.where(done, track, 0.0)) if track is not None
+             else torch.zeros((), device=done.device))])
 
     # ---- step -------------------------------------------------------------
     def _physics(self, state):
@@ -581,6 +604,13 @@ class LeggedRobotVelocityEnv:
         return total, episode_sums, episode_info
 
     def step(self, state, actions) -> Tuple[VelocityEnvState, Transition]:
+        ctx = self.step_begin(state, actions)
+        return self.step_end(ctx, self.batch_stats(ctx)
+                             if self.command_curriculum else None)
+
+    def step_begin(self, state, actions) -> dict:
+        """The step up to its batch reduction: physics, contacts, rewards,
+        command resampling, the heading command and the push."""
         B, dev = self.num_envs, self.device
         actions = torch.clamp(actions, -100.0, 100.0)
         state = state.replace(actions=actions)
@@ -606,18 +636,52 @@ class LeggedRobotVelocityEnv:
         robot = robot.replace(v=torch.cat([
             torch.where(do_push[:, None], push_vel, robot.v[:, :2]),
             robot.v[:, 2:]], dim=-1))
+        return dict(state=state, robot=robot, c=c, done=done, total=total,
+                    episode_sums=episode_sums, episode_info=episode_info,
+                    commands=commands, actions=actions)
+
+    def step_end(self, ctx, stats) -> Tuple[VelocityEnvState, Transition]:
+        """The rest of the step, given ``batch_stats`` of the whole batch
+        (None without the command curriculum): the curriculum, the resets
+        and the observations."""
+        state, robot, c, done = (ctx["state"], ctx["robot"], ctx["c"],
+                                 ctx["done"])
         command_ranges = (
-            self._update_command_curriculum(state, done, episode_sums)
+            self._update_command_curriculum(state, stats)
             if self.command_curriculum else state.command_ranges)
         new_state = state.replace(
-            robot=robot, commands=commands, command_ranges=command_ranges,
-            last_actions=actions, last_dof_vel=robot.v[:, 6:],
+            robot=robot, commands=ctx["commands"],
+            command_ranges=command_ranges,
+            last_actions=ctx["actions"], last_dof_vel=robot.v[:, 6:],
             feet_air_time=torch.where(c["contact_filt"], 0.0, c["air_time"]),
             last_contacts=c["contact"], episode_step=c["episode_step"],
-            episode_sums=episode_sums)
+            episode_sums=ctx["episode_sums"])
         new_state = self._do_reset(new_state, done)
         obs = self._obs(new_state)
-        info = {"episode": episode_info, "time_outs": c["time_out"],
+        info = {"episode": ctx["episode_info"], "time_outs": c["time_out"],
                 "n_resets": done.sum()}
         return new_state, Transition(obs=obs, privileged_obs=None,
-                                     reward=total, done=done, info=info)
+                                     reward=ctx["total"], done=done,
+                                     info=info)
+
+    # ---- sharding ---------------------------------------------------------
+    def shard(self, mesh, axis="dp") -> list:
+        """One env per shard of ``mesh`` (``envs.base.shard_env``); the
+        spawn origins and terrain types are per env."""
+        return shard_env(self, mesh, axis,
+                         per_env=("env_origins", "terrain_types"))
+
+    def shard_state(self, state, mesh, generators, axis="dp"):
+        """``state`` cut into shards (``envs.base.shard_env_state``); the
+        actuator net's states (2, B nj, 8) are cut along their env rows."""
+        from ..parallel.mesh import Sharded
+
+        sea = (state.sea_hidden, state.sea_cell)
+        out = shard_env_state(state.replace(sea_hidden=None, sea_cell=None),
+                              mesh, self.num_envs, generators, axis)
+        n = sea[0].shape[1] // mesh.extent(axis)
+        return Sharded([
+            s.replace(**{f: x[:, i * n:(i + 1) * n].to(dev, copy=True)
+                         for f, x in zip(("sea_hidden", "sea_cell"), sea)})
+            for i, (s, dev) in enumerate(zip(out, mesh.devices.flat))],
+            mesh, self.num_envs)

@@ -48,13 +48,14 @@ class TaskRegistry:
                         resume: bool = False, load_run: str = "latest",
                         load_dir: str = "", model=None,
                         metrics_callback=None,
-                        train_cfg: Optional[PPOConfig] = None):
+                        train_cfg: Optional[PPOConfig] = None, mesh=None):
         """The task's PPO runner logging to
         ``<log_root>/<name>/<date>_<run_name>``. ``resume`` loads
         ``load_run`` from ``load_dir``, by default the most recent earlier
         run under ``<log_root>/<name>`` (by modification time), and
         rebuilds the network it recorded. ``train_cfg`` overrides the
-        task's registered PPO config."""
+        task's registered PPO config; ``mesh`` trains data-parallel over a
+        device mesh (``OnPolicyRunner``)."""
         from ..rl.runner import (
             CheckpointManager,
             OnPolicyRunner,
@@ -82,9 +83,9 @@ class TaskRegistry:
         runner = OnPolicyRunner(
             env, model=model, cfg=train_cfg or entry.train_cfg,
             log_dir=log_dir, seed=seed, metrics_callback=metrics_callback,
-            **entry.runner_kwargs)
+            mesh=mesh, **entry.runner_kwargs)
         if resume:
-            runner.model.load_state_dict(
+            runner.load_state_dict(
                 CheckpointManager(load_dir).load(load_run, env.device))
         return runner
 

@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..sim.rom_sim import RomSim, RomSimState
-from .base import Transition
+from .base import Transition, shard_env
 
 
 @dataclasses.dataclass
@@ -50,6 +50,10 @@ class RomTrackingEnv:
 
     def replace(self, **kw) -> "RomTrackingEnv":
         return dataclasses.replace(self, **kw)
+
+    def shard(self, mesh, axis="dp") -> list:
+        """One env per shard of ``mesh`` (``envs.base.shard_env``)."""
+        return shard_env(self, mesh, axis)
 
     # ---- sizes -----------------------------------------------------------
     @property

@@ -25,6 +25,10 @@ contact stiffness, damping and friction (scalar, ``(nc,)``, ``(B, 1)``,
 velocity. It writes ``base_pos``, ``base_quat``, ``q`` and ``v`` into four
 contiguous (B, n) tensors. ``dr_rows`` is the TPU kernel's row layout of
 the same DR values, which the tests hold the table against.
+
+``substep_sharded`` is the counterpart of ``pallas_substep_sharded``: K3
+under a device mesh, one launch per shard on its device, on that shard's
+envs and its rows of every per-env DR field.
 """
 from __future__ import annotations
 
@@ -437,3 +441,36 @@ def substep(sim, state: RobotState, tau: torch.Tensor) -> RobotState:
     launch(sim, args, B, dev)
     return RobotState(*outs)
 
+
+def substep_sharded(sim, state, tau, mesh, axis="dp"):
+    """One physics substep of an env batch sharded over ``mesh``: on each
+    shard ``substep`` (K3 on a CUDA shard, which launches or raises; the
+    plain version on a CPU shard) on that shard's sim from
+    ``sim.shard(mesh)``, which holds the shard's rows of every per-env DR
+    field (``base_mass_delta`` (B,), contact stiffness, damping and
+    friction where per env) on its device; everything else replicated.
+
+    ``state`` and ``tau`` are ``Sharded`` (one tree per shard) or whole
+    batches, which are split here; the result is ``Sharded``.
+    """
+    from ..parallel.mesh import Sharded, _on_device, shard_batch
+
+    k = mesh.extent(axis)
+    if isinstance(state, Sharded):
+        B = sum(s.base_pos.shape[0] for s in state)
+    else:
+        B = state.base_pos.shape[0]
+    if B % k:
+        raise ValueError(f"batch {B} not divisible by mesh extent {k}")
+    if not isinstance(state, Sharded):
+        state = shard_batch(state, mesh, axis, batch_size=B)
+    if not isinstance(tau, Sharded):
+        tau = shard_batch(tau, mesh, axis, batch_size=B)
+    out = []
+    for s, st, t in zip(sim.shard(mesh, axis), state, tau):
+        if st.base_pos.device != s.device:
+            raise ValueError(f"a shard's state on {st.base_pos.device}, "
+                             f"its sim on {s.device}")
+        with _on_device(s.device):
+            out.append(substep(s, st, t))
+    return Sharded(out, mesh, B)

@@ -6,10 +6,13 @@ from .ppo import (
     compute_gae,
     init_train_state,
     make_learn_iteration,
+    make_learn_iteration_sharded,
     ppo_update,
     rollout,
+    rollout_sharded,
 )
 
 __all__ = ["ActorCritic", "ActorCriticRecurrent", "PPOConfig",
            "RolloutBatch", "TrainState", "compute_gae", "init_train_state",
-           "make_learn_iteration", "ppo_update", "rollout"]
+           "make_learn_iteration", "make_learn_iteration_sharded",
+           "ppo_update", "rollout", "rollout_sharded"]

@@ -167,7 +167,107 @@ def compute_gae(rewards, values, dones, last_value, gamma, lam):
     return advantages, advantages + values
 
 
+KEYS = ("obs", "actions", "log_probs", "values", "rewards", "dones",
+        "means", "log_stds")
+
+
 @torch.no_grad()
+def collect_steps(step, models, states, obs, cfg: PPOConfig, generators,
+                  carries=None):
+    """``cfg.num_steps`` transitions of k shards, each with its policy
+    replica ``models[i]`` and generator: ``step(states, actions) ->
+    (states, transitions)`` steps all shards (k = 1: one env). With
+    ``carries`` (one LSTM carry per shard) the policy is recurrent and its
+    carry is masked where an episode ends.
+
+    Returns ``(states, carries, st, last_value, ep_infos, n_resets)``: ``st``
+    the (T, B, ...) stacks of ``KEYS`` with the shards concatenated along
+    the env axis on the first shard's device (``log_stds`` (T, A) is
+    shard 0's: the replicas are equal), the per-step episode sums and
+    reset counts summed over the shards."""
+    k = len(models)
+    out = [{key: [] for key in KEYS} for _ in range(k)]
+    ep_infos, n_resets = [], []
+    carries = None if carries is None else list(carries)
+    with fp32_matmul():
+        for _ in range(cfg.num_steps):
+            acts, vals = [], []
+            for i in range(k):
+                if carries is None:
+                    mean, log_std, value = models[i](obs[i])
+                else:
+                    mean, log_std, value, carries[i] = models[i](
+                        obs[i], carries[i])
+                action, log_prob = gaussian_sample(generators[i], mean,
+                                                   log_std)
+                for key, x in zip(("obs", "actions", "log_probs", "values",
+                                   "means", "log_stds"),
+                                  (obs[i], action, log_prob, value, mean,
+                                   log_std)):
+                    out[i][key].append(x)
+                acts.append(action)
+                vals.append(value)
+            states, trs = step(states, acts)
+            for i, tr in enumerate(trs):
+                # time-limit bootstrapping: truncation is not death
+                out[i]["rewards"].append(
+                    tr.reward + cfg.gamma * vals[i]
+                    * tr.info["time_outs"].float())
+                out[i]["dones"].append(tr.done)
+                if carries is not None:
+                    carries[i] = models[i].mask_carry(carries[i], tr.done)
+            ep_infos.append({key: _sum([tr.info["episode"][key]
+                                        for tr in trs])
+                             for key in trs[0].info["episode"]})
+            n_resets.append(_sum([tr.info["n_resets"] for tr in trs]))
+            obs = [tr.obs for tr in trs]
+        last = [models[i](obs[i]) if carries is None
+                else models[i](obs[i], carries[i]) for i in range(k)]
+    st = {key: _cat([torch.stack(o[key]) for o in out], dim=1)
+          for key in KEYS if key != "log_stds"}
+    st["log_stds"] = torch.stack(out[0]["log_stds"])
+    last_value = _cat([x[2] for x in last], dim=0)
+    return states, carries, st, last_value, ep_infos, n_resets
+
+
+def _sum(xs):
+    """Sum of per-shard tensors on the first one's device."""
+    total = xs[0]
+    for x in xs[1:]:
+        total = total + x.to(total.device)
+    return total
+
+
+def _cat(xs, dim):
+    """Per-shard tensors concatenated on the first one's device (one shard:
+    itself)."""
+    if len(xs) == 1:
+        return xs[0]
+    return torch.cat([x.to(xs[0].device) for x in xs], dim=dim)
+
+
+def rollout_metrics(st, ep_infos, n_resets):
+    """Mean reward over all T x B rewards; the episode sums per reset (the
+    envs emit per-step sums over the envs that reset)."""
+    total_resets = torch.clamp(torch.stack(n_resets).sum(), min=1)
+    return {
+        "mean_reward": st["rewards"].mean(),
+        "mean_episode_info": {
+            k: torch.stack([e[k] for e in ep_infos]).sum() / total_resets
+            for k in (ep_infos[0] if ep_infos else {})},
+    }
+
+
+def _batch(st, last_value, cfg: PPOConfig) -> RolloutBatch:
+    advantages, returns = compute_gae(st["rewards"], st["values"],
+                                      st["dones"], last_value, cfg.gamma,
+                                      cfg.lam)
+    return RolloutBatch(obs=st["obs"], actions=st["actions"],
+                        log_probs=st["log_probs"], values=st["values"],
+                        advantages=advantages, returns=returns,
+                        means=st["means"], log_stds=st["log_stds"])
+
+
 def rollout(env, model, env_state, cfg: PPOConfig,
             generator: torch.Generator, obs=None):
     """Collect ``cfg.num_steps`` transitions from the vectorized env.
@@ -177,43 +277,35 @@ def rollout(env, model, env_state, cfg: PPOConfig,
     """
     if obs is None:
         obs = env._obs(env_state)
-    keys = ("obs", "actions", "log_probs", "values", "rewards", "dones",
-            "means", "log_stds")
-    out = {k: [] for k in keys}
-    ep_infos, n_resets = [], []
-    with fp32_matmul():
-        for _ in range(cfg.num_steps):
-            mean, log_std, value = model(obs)
-            action, log_prob = gaussian_sample(generator, mean, log_std)
-            env_state, tr = env.step(env_state, action)
-            # time-limit bootstrapping: truncation is not death
-            reward = tr.reward + cfg.gamma * value * \
-                tr.info["time_outs"].float()
-            for k, x in zip(keys, (obs, action, log_prob, value, reward,
-                                   tr.done, mean, log_std)):
-                out[k].append(x)
-            ep_infos.append(tr.info["episode"])
-            n_resets.append(tr.info["n_resets"])
-            obs = tr.obs
-        _, _, last_value = model(obs)
-    st = {k: torch.stack(v) for k, v in out.items()}
-    advantages, returns = compute_gae(st["rewards"], st["values"],
-                                      st["dones"], last_value, cfg.gamma,
-                                      cfg.lam)
-    batch = RolloutBatch(obs=st["obs"], actions=st["actions"],
-                         log_probs=st["log_probs"], values=st["values"],
-                         advantages=advantages, returns=returns,
-                         means=st["means"], log_stds=st["log_stds"])
-    total_resets = torch.clamp(torch.stack(n_resets).sum(), min=1)
-    metrics = {
-        "mean_reward": st["rewards"].mean(),
-        # envs emit per-step sums over reset envs: divide the total by the
-        # number of resets in the window
-        "mean_episode_info": {
-            k: torch.stack([e[k] for e in ep_infos]).sum() / total_resets
-            for k in (ep_infos[0] if ep_infos else {})},
-    }
-    return env_state, batch, metrics
+
+    def step(states, actions):
+        state, tr = env.step(states[0], actions[0])
+        return [state], [tr]
+
+    states, _, st, last_value, ep_infos, n_resets = collect_steps(
+        step, [model], [env_state], [obs], cfg, [generator])
+    return (states[0], _batch(st, last_value, cfg),
+            rollout_metrics(st, ep_infos, n_resets))
+
+
+def rollout_sharded(senv, models, states, cfg: PPOConfig, generators):
+    """``rollout`` over a device mesh: shard i of ``senv``
+    (``envs.base.ShardedEnv``) rolls out with the policy replica
+    ``models[i]`` and ``generators[i]``; the batch is gathered onto the
+    first device (envs in shard order) and its metrics are over the whole
+    batch. Returns ``(states, batch, metrics)``, ``states`` ``Sharded``."""
+    obs = [e._obs(s) for e, s in zip(senv.envs, states)]
+    states, _, st, last_value, ep_infos, n_resets = collect_steps(
+        senv.step, list(models), states, obs, cfg, generators)
+    return (states, _batch(st, last_value, cfg),
+            rollout_metrics(st, ep_infos, n_resets))
+
+
+def sync_replicas(models) -> None:
+    """Copies the first model's parameters into every other replica."""
+    state = models[0].state_dict()
+    for m in list(models)[1:]:
+        m.load_state_dict(state)
 
 
 def adaptive_lr(lr: torch.Tensor, kl: torch.Tensor,
@@ -329,5 +421,27 @@ def make_learn_iteration(env, model, cfg: PPOConfig):
                                                  train_state.gen)
         train_state, up_metrics = ppo_update(model, train_state, batch, cfg)
         return train_state, env_state, {**roll_metrics, **up_metrics}
+
+    return learn_iteration
+
+
+def make_learn_iteration_sharded(senv, models, cfg: PPOConfig, generators):
+    """The learn iteration over a device mesh: each shard rolls out its env
+    (``senv``, an ``envs.base.ShardedEnv``) with its policy replica
+    (``models``, ``parallel.mesh.replicate`` of the model) and generator;
+    the batch is gathered onto the first device, where ``ppo_update``
+    updates ``models[0]`` on the whole batch, as the JAX package's
+    data-parallel step does with XLA's gradient all-reduce; the new
+    parameters are then copied into every replica.
+    ``learn_iteration(train_state, env_states) -> (train_state,
+    env_states, metrics)``."""
+
+    def learn_iteration(train_state: TrainState, env_states):
+        env_states, batch, roll_metrics = rollout_sharded(
+            senv, models, env_states, cfg, generators)
+        train_state, up_metrics = ppo_update(models[0], train_state, batch,
+                                             cfg)
+        sync_replicas(models)
+        return train_state, env_states, {**roll_metrics, **up_metrics}
 
     return learn_iteration

@@ -14,18 +14,30 @@ from __future__ import annotations
 import torch
 
 from ..utils.runtime import fp32_matmul
-from .networks import ActorCriticRecurrent, gaussian_sample
+from .networks import ActorCriticRecurrent
 from .ppo import (
     PPOConfig,
     TrainState,
+    collect_steps,
     compute_gae,
     normalized,
     ppo_losses,
+    rollout_metrics,
     run_epochs,
+    sync_replicas,
 )
 
 
-@torch.no_grad()
+def _recurrent_batch(st, last_value, carry0, cfg: PPOConfig):
+    batch = dict(st)
+    rewards = batch.pop("rewards")
+    batch["advantages"], batch["returns"] = compute_gae(
+        rewards, batch["values"], batch["dones"], last_value, cfg.gamma,
+        cfg.lam)
+    batch["carry0"] = carry0
+    return batch
+
+
 def rollout_recurrent(env, model, env_state, carry, cfg: PPOConfig,
                       generator: torch.Generator, obs=None):
     """Collect ``cfg.num_steps`` transitions, threading the LSTM carry.
@@ -33,40 +45,36 @@ def rollout_recurrent(env, model, env_state, carry, cfg: PPOConfig,
     of (T, B, ...) tensors with ``carry0`` (the window's first carry)."""
     if obs is None:
         obs = env._obs(env_state)
-    carry0 = carry
-    keys = ("obs", "actions", "log_probs", "values", "rewards", "dones",
-            "means", "log_stds")
-    out = {k: [] for k in keys}
-    ep_infos, n_resets = [], []
-    with fp32_matmul():
-        for _ in range(cfg.num_steps):
-            mean, log_std, value, carry = model(obs, carry)
-            action, log_prob = gaussian_sample(generator, mean, log_std)
-            env_state, tr = env.step(env_state, action)
-            reward = tr.reward + cfg.gamma * value * \
-                tr.info["time_outs"].float()
-            carry = ActorCriticRecurrent.mask_carry(carry, tr.done)
-            for k, x in zip(keys, (obs, action, log_prob, value, reward,
-                                   tr.done, mean, log_std)):
-                out[k].append(x)
-            ep_infos.append(tr.info["episode"])
-            n_resets.append(tr.info["n_resets"])
-            obs = tr.obs
-        _, _, last_value, _ = model(obs, carry)
-    batch = {k: torch.stack(v) for k, v in out.items()}
-    rewards = batch.pop("rewards")
-    batch["advantages"], batch["returns"] = compute_gae(
-        rewards, batch["values"], batch["dones"], last_value, cfg.gamma,
-        cfg.lam)
-    batch["carry0"] = carry0
-    total_resets = torch.clamp(torch.stack(n_resets).sum(), min=1)
-    metrics = {
-        "mean_reward": rewards.mean(),
-        "mean_episode_info": {
-            k: torch.stack([e[k] for e in ep_infos]).sum() / total_resets
-            for k in (ep_infos[0] if ep_infos else {})},
-    }
-    return env_state, carry, batch, metrics
+
+    def step(states, actions):
+        state, tr = env.step(states[0], actions[0])
+        return [state], [tr]
+
+    states, carries, st, last_value, ep_infos, n_resets = collect_steps(
+        step, [model], [env_state], [obs], cfg, [generator],
+        carries=[carry])
+    return (states[0], carries[0],
+            _recurrent_batch(st, last_value, carry, cfg),
+            rollout_metrics(st, ep_infos, n_resets))
+
+
+def rollout_recurrent_sharded(senv, models, states, carries,
+                              cfg: PPOConfig, generators):
+    """``rollout_recurrent`` over a device mesh, as ``ppo.rollout_sharded``:
+    ``carries`` holds each shard's carry (``shard_batch`` of the whole
+    batch's by its batch size). Returns ``(states, carries, batch,
+    metrics)``; the batch's ``carry0`` is the shards' first carries
+    concatenated on the first device."""
+    from ..parallel.mesh import Sharded, gather
+
+    obs = [e._obs(s) for e, s in zip(senv.envs, states)]
+    states, new, st, last_value, ep_infos, n_resets = collect_steps(
+        senv.step, list(models), states, obs, cfg, generators,
+        carries=list(carries))
+    return (states, Sharded(new, carries.mesh, carries.batch_size,
+                            carries.split),
+            _recurrent_batch(st, last_value, gather(carries), cfg),
+            rollout_metrics(st, ep_infos, n_resets))
 
 
 def ppo_update_recurrent(model, train_state: TrainState, batch,
@@ -107,5 +115,25 @@ def make_learn_iteration_recurrent(env, model, cfg: PPOConfig):
         train_state, up_metrics = ppo_update_recurrent(model, train_state,
                                                        batch, cfg)
         return train_state, env_state, carry, {**roll_metrics, **up_metrics}
+
+    return learn_iteration
+
+
+def make_learn_iteration_recurrent_sharded(senv, models, cfg: PPOConfig,
+                                           generators):
+    """The recurrent learn iteration over a device mesh (as
+    ``ppo.make_learn_iteration_sharded``): ``learn_iteration(train_state,
+    env_states, carries) -> (train_state, env_states, carries,
+    metrics)``, the carries ``Sharded``."""
+
+    def learn_iteration(train_state: TrainState, env_states, carries):
+        env_states, carries, batch, roll_metrics = rollout_recurrent_sharded(
+            senv, models, env_states, carries, cfg, generators)
+        train_state, up_metrics = ppo_update_recurrent(models[0],
+                                                       train_state, batch,
+                                                       cfg)
+        sync_replicas(models)
+        return train_state, env_states, carries, {**roll_metrics,
+                                                  **up_metrics}
 
     return learn_iteration

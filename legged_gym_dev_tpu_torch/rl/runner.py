@@ -4,8 +4,17 @@ Counterpart of ``legged_gym_dev_tpu/rl/runner.py``: drives the PPO learn
 iteration, logs JSON-line metrics, and keeps checkpoints with ``latest`` /
 ``best{stage}`` aliases (best resets when the curriculum stage changes).
 A checkpoint is the model's ``state_dict`` written by ``torch.save`` to
-``<log_dir>/<name>.pt`` (orbax directories in the JAX package). One card:
-the JAX runner's device mesh has no counterpart here.
+``<log_dir>/<name>.pt`` (orbax directories in the JAX package).
+
+With a device mesh (``mesh=``, ``parallel.mesh.make_mesh``) the runner
+trains data-parallel: the env is cut into one replica per shard
+(``envs.base.ShardedEnv``), each reset with its own generator
+(``parallel.mesh.shard_generators``: shard 0 as the unsharded run's, so a
+1-device mesh reproduces it bit for bit), the model is replicated, each
+shard rolls out with its replica and the update runs on the whole batch
+gathered onto the first device (``ppo.make_learn_iteration_sharded``).
+Checkpoints hold one copy of the parameters, so a sharded run resumes
+unsharded and the other way round.
 """
 from __future__ import annotations
 
@@ -21,7 +30,13 @@ import torch
 
 from ..utils.runtime import fp32_matmul
 from .networks import ActorCritic
-from .ppo import PPOConfig, init_train_state, make_learn_iteration
+from .ppo import (
+    PPOConfig,
+    init_train_state,
+    make_learn_iteration,
+    make_learn_iteration_sharded,
+    sync_replicas,
+)
 
 _ARCH_FIELDS = ("num_obs", "num_actions", "actor_hidden_dims",
                 "critic_hidden_dims", "activation", "init_noise_std",
@@ -136,23 +151,49 @@ class OnPolicyRunner:
 
     def __init__(self, env, model=None, cfg: PPOConfig = PPOConfig(),
                  log_dir: Optional[str] = None, seed: int = 0,
-                 metrics_callback: Optional[Callable[[Dict], None]] = None):
-        self.env, self.cfg = env, cfg
-        dev = env.device
+                 metrics_callback: Optional[Callable[[Dict], None]] = None,
+                 mesh=None):
+        self.env, self.cfg, self.mesh = env, cfg, mesh
+        dev = env.device if mesh is None else mesh.devices.flat[0]
         if model is None:
             model = ActorCritic(env.num_obs, env.num_actions,
                                 generator=torch.Generator().manual_seed(seed))
         self.model = model.to(dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        self.env_state, _ = env.reset(gen)
-        self.train_state = init_train_state(self.model, cfg, gen)
         self.recurrent = hasattr(self.model, "initial_carry")
+        if mesh is None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            self.env_state, _ = env.reset(gen)
+            self.models = [self.model]
+        else:
+            from ..envs.base import ShardedEnv
+            from ..parallel.mesh import (
+                replicate,
+                shard_batch,
+                shard_generators,
+            )
+
+            senv = ShardedEnv(env, mesh)
+            gens = shard_generators(mesh, seed)
+            gen = gens[0]
+            self.env_state, _ = senv.reset(gens)
+            self.models = replicate(self.model, mesh)
+        self.train_state = init_train_state(self.model, cfg, gen)
         if self.recurrent:
-            from .ppo_recurrent import make_learn_iteration_recurrent
+            from .ppo_recurrent import (
+                make_learn_iteration_recurrent,
+                make_learn_iteration_recurrent_sharded,
+            )
 
             self.carry = self.model.initial_carry(env.num_envs)
-            rec_learn = make_learn_iteration_recurrent(env, self.model, cfg)
+            if mesh is None:
+                rec_learn = make_learn_iteration_recurrent(env, self.model,
+                                                           cfg)
+            else:
+                self.carry = shard_batch(self.carry, mesh,
+                                         batch_size=env.num_envs)
+                rec_learn = make_learn_iteration_recurrent_sharded(
+                    senv, self.models, cfg, gens)
 
             def _learn(train_state, env_state):
                 train_state, env_state, self.carry, metrics = rec_learn(
@@ -162,7 +203,10 @@ class OnPolicyRunner:
             self._learn = _learn
         else:
             self.carry = None
-            self._learn = make_learn_iteration(env, self.model, cfg)
+            self._learn = (
+                make_learn_iteration(env, self.model, cfg) if mesh is None
+                else make_learn_iteration_sharded(senv, self.models, cfg,
+                                                  gens))
         self.log_dir = log_dir
         self.ckpt = CheckpointManager(log_dir) if log_dir else None
         if log_dir:
@@ -252,7 +296,13 @@ class OnPolicyRunner:
 
         return policy
 
+    def load_state_dict(self, state_dict) -> None:
+        """Loads a checkpoint's parameters into the model and every
+        replica."""
+        self.model.load_state_dict(state_dict)
+        sync_replicas(self.models)
+
     def load(self, name: str = "latest"):
         if self.ckpt is None:
             raise ValueError("the runner has no log_dir to load from")
-        self.model.load_state_dict(self.ckpt.load(name, self.env.device))
+        self.load_state_dict(self.ckpt.load(name, self.env.device))

@@ -13,6 +13,11 @@ sim that ``supports_kernel`` admits (flat terrain, per-robot springs), and
 the plain version for the others (a heightfield), as the JAX package
 routes non-flat terrain to its XLA path. The route is read from the sim
 alone.
+
+``shard(mesh)`` cuts a sim into per-shard sims (per-env DR fields
+sliced, everything on the shard's device), each an ordinary sim of its
+shard's envs. With ``shard_mesh`` set, ``substep`` on a whole batch goes
+shard by shard through ``substep_kernels.substep_sharded`` on those sims.
 """
 from __future__ import annotations
 
@@ -60,9 +65,56 @@ class RobotSim:
     # angular_velocity = 1000): keeps a contact blow-up from overflowing to
     # inf within one decimated step.
     base_vel_limit: float = 1000.0
+    # Optional ``(mesh, axis)``: ``substep`` takes the kernel's route
+    # through ``substep_sharded`` and gathers the result (the JAX sim's
+    # ``pallas_substep_sharded`` route; a heightfield keeps the plain
+    # substep).
+    shard_mesh: Optional[tuple] = None
 
     def replace(self, **kw) -> "RobotSim":
         return dataclasses.replace(self, **kw)
+
+    def shard(self, mesh, axis="dp") -> list:
+        """The per-shard sims over ``mesh``: shard i holds rows
+        [i b, (i+1) b) of every per-env field (``base_mass_delta`` (B,);
+        contact parameters of two or more dims, (B, 1), (B, 1, 1) or
+        (B, nc)), and the model's, springs' and contact's tensors on its
+        device; no mesh of their own. Cut once per mesh and kept on the
+        sim."""
+        from ..parallel.mesh import place
+
+        cache = self.__dict__.setdefault("_shards", {})
+        key = (id(mesh), axis if isinstance(axis, str) else tuple(axis))
+        hit = cache.get(key)
+        if hit is not None and hit[0] is mesh:
+            return hit[1]
+        k = mesh.extent(axis)
+
+        def rows(x, i, dev, per_env):
+            if not per_env:
+                return place(x, dev)
+            if x.shape[0] % k:
+                raise ValueError(f"a per-env field of {x.shape[0]} rows "
+                                 f"does not divide over {k} shards")
+            b = x.shape[0] // k
+            return x[i * b:(i + 1) * b].to(dev, copy=True)
+
+        bmd, c = self.base_mass_delta, self.contact
+        out = []
+        for i, dev in enumerate(mesh.devices.flat):
+            contact = c.replace(**{
+                f: rows(getattr(c, f), i, dev, getattr(c, f).ndim >= 2)
+                for f in ("stiffness", "damping", "friction")},
+                slip_vel=place(c.slip_vel, dev))
+            out.append(self.replace(
+                contact=contact, springs=place(self.springs, dev),
+                base_mass_delta=(None if bmd is None else rows(
+                    torch.as_tensor(bmd), i, dev,
+                    torch.as_tensor(bmd).ndim >= 1)),
+                terrain_fn=place(self.terrain_fn, dev),
+                shard_mesh=None))
+        cache[key] = (mesh, out)
+        return out
 
     @property
     def device(self) -> torch.device:
@@ -96,6 +148,11 @@ class RobotSim:
     def substep(self, state: RobotState, tau: torch.Tensor) -> RobotState:
         """One physics step at self.dt with applied joint torques tau."""
         if substep_kernels.supports_kernel(self):
+            if self.shard_mesh is not None:
+                from ..parallel.mesh import gather
+
+                return gather(substep_kernels.substep_sharded(
+                    self, state, tau, *self.shard_mesh))
             return substep_kernels.substep(self, state, tau)
         return substep_kernels.substep_plain(self, state, tau)
 

@@ -68,6 +68,18 @@ class RomSim:
     def replace(self, **kw) -> "RomSim":
         return dataclasses.replace(self, **kw)
 
+    def shard(self, mesh, axis="dp") -> list:
+        """One sim per shard of ``mesh``: ``num_envs`` / shards envs each,
+        its tensors on the shard's device."""
+        from ..parallel.mesh import place
+
+        k = mesh.extent(axis)
+        if self.num_envs % k:
+            raise ValueError(f"{self.num_envs} envs do not divide over {k} "
+                             f"shards")
+        return [place(self, dev).replace(num_envs=self.num_envs // k)
+                for dev in mesh.devices.flat]
+
     @property
     def rom(self) -> RomDynamics:
         return self.traj_gen.rom

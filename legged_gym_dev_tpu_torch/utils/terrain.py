@@ -385,6 +385,10 @@ class Terrain:
             return h, torch.stack([gx, gy], dim=-1)
 
         terrain_fn.value_and_grad = value_and_grad
+        # the heightfield lives on ``dev``; ``to`` rebuilds it on another
+        # device (``parallel.mesh.place``: a mesh's shards on other cards)
+        terrain_fn.device = dev
+        terrain_fn.to = self.make_terrain_fn
         return terrain_fn
 
 

@@ -452,3 +452,28 @@ def test_play_launches_the_substep_kernel_on_card(card, tmp_path):
     log = out["logger"].state_log
     assert len(log["dof_pos"]) == 5
     assert all(np.isfinite(np.stack(v)).all() for v in log.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["quadruped", "hopper"])
+def test_substep_sharded_on_card(card, robot):
+    """K3's sharded route on a 2-shard mesh of the card (the one card
+    listed twice): one launch per shard, each on its shard's rows of the
+    per-env DR values, within 1e-6 of one unsharded K3 launch (K3 works
+    env by env, so it should be 0)."""
+    from legged_gym_dev_tpu_torch.parallel.mesh import gather, make_mesh
+
+    rc = robot_cases()
+    inp = rc.substep_inputs(robot, 4096, seed=11, dr=True)
+    sim = rc.torch_sim(robot, card, inp)
+    st, tau = rc.torch_state(inp, card)
+    mesh = make_mesh(2, devices=[card, card])
+    ref = sk.substep(sim, st, tau)
+    sk.reset_launches()
+    out = sk.substep_sharded(sim, st, tau, mesh, "dp")
+    torch.cuda.synchronize()
+    assert sk.launches() == {"substep": 2}
+    assert [s.base_pos.device for s in out] == list(mesh.devices.flat)
+    got = gather(out)
+    for name in ("base_pos", "base_quat", "q", "v"):
+        assert rel(getattr(got, name), getattr(ref, name)) <= 1e-6, name

@@ -335,3 +335,31 @@ def test_play_entry_points_raise_without_card(monkeypatch, tmp_path):
         make_hopper_trajectory_env(
             urdf_path=HOPPER_URDF, num_envs=2,
             weight_sampler="UniformWeightSamplerTurnBiased")
+
+
+def test_scan_sees_the_mesh_slice():
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for needed in ("legged_gym_dev_tpu_torch/parallel/__init__.py",
+                   "legged_gym_dev_tpu_torch/parallel/mesh.py"):
+        assert needed in files
+    assert ("legged_gym_dev_tpu_torch.parallel.mesh"
+            in _imported_modules(PACKAGE / "ops" / "substep_kernels.py"))
+
+
+def test_mesh_entry_points_raise_without_card(monkeypatch, tmp_path):
+    """A mesh asked of the card (``make_mesh``, ``make_host_mesh`` without
+    devices, ``cli train --dp-devices`` without ``--cpu``) raises on a
+    machine with no card instead of landing on the CPU."""
+    from legged_gym_dev_tpu_torch import cli
+    from legged_gym_dev_tpu_torch.parallel import make_host_mesh, make_mesh
+
+    _no_card(monkeypatch)
+    for call in (lambda: make_mesh(), lambda: make_mesh(1),
+                 lambda: make_host_mesh(1, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--task", "rom_tracking", "--dp-devices", "2",
+                  "--num-envs", "4", "--max-iterations", "1",
+                  "--log-root", str(tmp_path / "logs")])
+    assert make_mesh(2, devices=["cpu", "cpu"]).size == 2
