@@ -166,7 +166,25 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    ``[mesh collect]`` a
    ``rom_tracking`` collect step at B=4096 (equal on the envs that drew
    nothing);
-16. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
+16. flagship phase (main path of the flagship slice): the port's two
+   end-to-end pipelines, ``scripts/torch_flagship_e2e.py`` (ROM-tracking
+   collection with the PD tracker -> the one-shot tube net -> the batched
+   NN-tube closed loop) and ``scripts/torch_flagship_rl_e2e.py``
+   (``hopper_trajectory`` on the test hopper: PPO -> ``best{stage}``
+   selection on the zero/square/circle fixtures beside the Raibert
+   heuristic -> collection from the selected policy -> the tube net with
+   its split-conformal scale -> the closed loop uncalibrated, calibrated
+   and trace-calibrated), each a process on the card started after the
+   substep phase and run beside the phases up to the tube phase; widths
+   uncut (B=1024, COLLECT_ENVS=1024, TRAIN_ENVS=4096, FIXTURE_ENVS=256,
+   N=50, H_rev=10), depth cut (``FLAGSHIP_KNOBS``); each must exit 0 with
+   every key of its JAX script's report, finite numbers, adoption above
+   0 in every closed loop, a positive conformal scale, calibrated
+   per-step coverage >= 0.88, and bt_solve / bt_factor / bt_msolve and
+   the substep kernel (nj=4) launched exactly as often as the knobs say
+   (``flagship_expected``); per-resolve latency, resolves/s, adoption,
+   coverage, each stage's wall and the selected checkpoint are printed;
+17. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
    joint count on rows of their own, the instances no robot runs measured
    on their chains in the substep phase; ``bt_solve``'s row counts the
    other block sizes' launches; ``substep_sharded``, K3 launched shard by
@@ -180,14 +198,16 @@ result line. Without a CUDA device it exits non-zero at once.
 Usage: ``python3 chip_smoke.py`` (all phases), or
 ``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
 debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl,
-train, train_rnn, tube, plan, robots, play, mesh; ``--phases plan`` is the
-planning slice alone, ``--phases robots`` the robots slice, ``--phases
-play`` the play slice, ``--phases mesh`` the mesh slice).
+train, train_rnn, tube, plan, robots, play, mesh, flagship; ``--phases
+plan`` is the planning slice alone, ``--phases robots`` the robots slice,
+``--phases play`` the play slice, ``--phases mesh`` the mesh slice,
+``--phases flagship`` the two flagship pipelines).
 """
 import argparse
 import concurrent.futures
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
@@ -197,7 +217,8 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl",
-          "train", "train_rnn", "tube", "plan", "robots", "play", "mesh")
+          "train", "train_rnn", "tube", "plan", "robots", "play", "mesh",
+          "flagship")
 N, H_REV = 50, 10
 B_L1, B_NN = 2048, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -3095,6 +3116,258 @@ def mesh_phase(dev):
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# flagship phase: the port's two end-to-end pipelines, a process each
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_SCRIPTS = {"rom": "scripts/torch_flagship_e2e.py",
+                    "rl": "scripts/torch_flagship_rl_e2e.py"}
+# Environment knobs of the two scripts. Widths are the JAX scripts' (B,
+# COLLECT_ENVS, TRAIN_ENVS, FIXTURE_ENVS; N=50 and H_rev=10 are the
+# scripts' own); only depth is cut: H (75), TRAIN_ITERS (2000),
+# FIXTURE_STEPS (400), EPISODE_S (10; 5.5 s holds N + 2 = 52 ROM ticks),
+# COLLECT_EPOCHS (2) and REPS (3). The RL pipeline plans on right_wide,
+# the problem the JAX package's hopper flagship runs: hopper-scale tubes
+# close gap's 0.52 m corridor (after 2 PPO iterations the loops adopted
+# 0.0007 and 0.0013 of the re-solves there).
+FLAGSHIP_KNOBS = {
+    "rom": {"B": 1024, "COLLECT_ENVS": 1024, "H": 3, "EPOCHS": 40,
+            "REPS": 1},
+    "rl": {"TASK": "hopper_trajectory", "TRAIN_ENVS": 4096,
+           "TRAIN_ITERS": 2, "FIXTURE_ENVS": 256, "FIXTURE_STEPS": 10,
+           "COLLECT_ENVS": 1024, "COLLECT_EPOCHS": 1, "EPISODE_S": 5.5,
+           "B": 1024, "H": 3, "EPOCHS": 40, "REPS": 1,
+           "PROBLEM": "right_wide"},
+}
+# the scripts' schedules, (outer, inner, Woodbury basis refresh): the
+# closed loop's first solve (and its nominal warm start) and each re-solve
+FLAGSHIP_SCHEDULES = ((20, 10, 3), (4, 6, 3))
+FIXTURES = ("zero", "square", "circle")
+TRACE_KEYS = ("coverage", "mean_width", "mean_error", "max_error",
+              "mean_margin", "solver_converged_frac", "max_solver_viol")
+LOOP_TIMING = ("wall_s", "compile_plus_first_s", "per_resolve_batched_s",
+               "rom_tick_budget_s", "realtime_batched", "resolves_per_s")
+RL_LOOP = ("problem", "scenarios", "H", *LOOP_TIMING, "adopted_frac",
+           "median_goal_dist", "tube_coverage_on_trace", "tube_mean_width",
+           "tube_mean_error")
+# every key of the JAX scripts' reports (scripts/flagship_e2e.py,
+# scripts/flagship_rl_e2e.py), each section with its keys
+FLAGSHIP_KEYS = {
+    "rom": {
+        "collect": ("episodes", "rom_steps", "wall_s"),
+        "tube_train": ("epochs", "one_step_coverage", "final_loss",
+                       "wall_s"),
+        "mpc": ("scenarios", "H", *LOOP_TIMING, "adopted_frac",
+                "max_adopted_viol", "median_goal_dist",
+                "goal_reach_frac_10cm"),
+        "tube_on_trace": TRACE_KEYS,
+    },
+    "rl": {
+        "task": (), "curriculum": (), "weight_sampler": (),
+        "rl_train": ("iters", "envs", "wall_s", "reward_first",
+                     "reward_last", "env_steps_per_s"),
+        "checkpoint_selection": ("candidates", "selected"),
+        "fixture_tracking": (*FIXTURES, *(f"raibert_{f}" for f in FIXTURES),
+                             "wall_s"),
+        "collect": ("episodes", "rom_steps", "wall_s", "mean_tracking_err",
+                    "p95_tracking_err"),
+        "tube_train": ("epochs", "one_step_coverage", "conformal_scale",
+                       "cal_step_coverage_pre", "cal_step_coverage_post",
+                       "wall_s"),
+        "mpc_env": ("v_max_data", "v_plan", "robot_vel", "robot_acc"),
+        "mpc_uncalibrated": RL_LOOP, "mpc": RL_LOOP,
+        "trace_conformal": ("scale_q", "out_scale"),
+        "mpc_trace_cal": RL_LOOP,
+    },
+}
+FLAGSHIP_LOOPS = {"rom": ("mpc",),
+                  "rl": ("mpc_uncalibrated", "mpc", "mpc_trace_cal")}
+CAL_COVERAGE_MIN = 0.88  # split-conformal at 0.9, less 8192 draws' noise
+
+
+def solve_launches(outer, inner, refresh, nn=True):
+    """Kernel launches of one staged solve with ``linsolve="pallas"``: one
+    bt_solve an inner step (the l1 step, or the NN step's gradient
+    column), and for the NN tube one multi-RHS solve (bt_factor +
+    bt_msolve) for the Woodbury basis per chunk of ``refresh`` inner
+    steps."""
+    chunks = -(-inner // refresh) if nn else 0
+    return {"bt_solve": outer * inner, "bt_factor": outer * chunks,
+            "bt_msolve": outer * chunks}
+
+
+def loop_launches(H, schedules=FLAGSHIP_SCHEDULES):
+    """One call of the flagships' NN-tube closed loop: the nominal (l1)
+    warm start and the first NN solve on the first schedule, then H
+    re-solves on the loop's."""
+    first, loop = schedules
+    parts = ([solve_launches(*first, nn=False), solve_launches(*first)]
+             + [solve_launches(*loop)] * H)
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def flagship_expected(kind, knobs, report, hopper=None,
+                      schedules=FLAGSHIP_SCHEDULES):
+    """The launches a flagship run with these knobs must count: each
+    closed-loop call's (the ROM flagship's warm-up and REPS timed calls;
+    the RL flagship's three loops so, and its trace-calibration call),
+    and for the RL flagship the substep kernel at the hopper's joint count
+    once a substep of every env step: the learn iterations' rollouts, the
+    fixtures of each checkpoint candidate (the report's) and of the
+    Raibert heuristic, and the collection's ROM ticks. ``hopper`` holds
+    the env's constants: nj, decimation, dt, the ROM's dt and PPO's
+    steps an iteration."""
+    calls = 1 + knobs["REPS"]
+    if kind == "rl":
+        calls = 3 * calls + 1
+    out = {k: calls * v
+           for k, v in loop_launches(knobs["H"], schedules).items()}
+    out["substep"] = {}
+    if kind == "rl":
+        ticks = int(round(float(knobs["EPISODE_S"]) / hopper["rom_dt"]))
+        per_tick = max(1, int(round(hopper["rom_dt"] / hopper["dt"])))
+        n_cand = len(report["checkpoint_selection"]["candidates"])
+        steps = (knobs["TRAIN_ITERS"] * hopper["num_steps"]
+                 + (n_cand + 1) * len(FIXTURES) * knobs["FIXTURE_STEPS"]
+                 + knobs["COLLECT_EPOCHS"] * ticks * per_tick)
+        out["substep"] = {str(hopper["nj"]): hopper["decimation"] * steps}
+    return out
+
+
+def hopper_constants(urdf, dev):
+    """The test hopper's env constants that ``flagship_expected`` reads,
+    from a one-env ``hopper_trajectory`` env."""
+    from legged_gym_dev_tpu_torch.envs import task_registry
+
+    env = task_registry.make_env("hopper_trajectory", num_envs=1,
+                                 urdf_path=str(urdf), device=dev)
+    return {"nj": env.sim.model.nj, "decimation": env.sim.decimation,
+            "dt": float(env.dt), "rom_dt": float(env.rom.dt),
+            "num_steps": task_registry.get(
+                "hopper_trajectory").train_cfg.num_steps}
+
+
+def start_flagship(running):
+    """Both flagship scripts, each a process on the card (as a user runs
+    them, ``URDF`` naming the test hopper's file for the RL pipeline),
+    started together and appended to ``running``. Returns their working
+    directory."""
+    import shutil
+
+    work = ROOT / "build" / "chip_smoke_flagship"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    urdf = work / "hopper.urdf"
+    urdf.write_text(robot_cases().HOPPER_URDF)
+    extra = {"rom": {}, "rl": {"URDF": str(urdf),
+                               "REPORT": str(work / "rl_report.json")}}
+    for kind, script in FLAGSHIP_SCRIPTS.items():
+        env = {**os.environ, **{k: str(v) for k, v in
+                                {**FLAGSHIP_KNOBS[kind],
+                                 **extra[kind]}.items()}}
+        env.pop("E2E_CPU", None)
+        with open(work / f"{kind}.out", "w") as out, \
+                open(work / f"{kind}.err", "w") as err:
+            proc = subprocess.Popen([sys.executable, str(ROOT / script)],
+                                    cwd=ROOT, env=env, stdout=out,
+                                    stderr=err)
+        running.append((kind, script, time.time(), proc))
+    return work
+
+
+def _numbers(tree, path=""):
+    """(path, value) of every number in a report."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _numbers(v, f"{path}.{k}")
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield path, tree
+
+
+def check_flagship(kind, rep, expected):
+    """The report's keys, finite numbers, adoption, conformal scale and
+    calibration coverage, and its launches against ``expected``."""
+    for section, keys in FLAGSHIP_KEYS[kind].items():
+        check(section in rep, f"flagship {kind}: no {section}")
+        missing = [k for k in keys if k not in rep[section]]
+        check(not missing, f"flagship {kind} {section}: missing {missing}")
+    bad = [p for p, v in _numbers(rep) if not np.isfinite(v)]
+    check(not bad, f"flagship {kind}: non-finite {bad}")
+    for loop in FLAGSHIP_LOOPS[kind]:
+        check(rep[loop]["adopted_frac"] > 0,
+              f"flagship {kind} {loop}: nothing adopted")
+    if kind == "rl":
+        tt = rep["tube_train"]
+        check(tt["conformal_scale"] > 0, f"flagship rl: scale {tt}")
+        check(tt["cal_step_coverage_post"] >= CAL_COVERAGE_MIN,
+              f"flagship rl: calibrated coverage {tt}")
+    got = rep["launches"]
+    check(got == expected,
+          f"flagship {kind}: launches {got}, expected {expected}")
+    for k in ("bt_solve", "bt_factor", "bt_msolve"):
+        check(got[k] > 0, f"flagship {kind}: no {k} launch")
+    if kind == "rl":
+        check(sum(got["substep"].values()) > 0,
+              "flagship rl: no substep launch")
+
+
+def print_flagship(kind, rep, wall):
+    """The phase's lines: latency, rate, adoption, coverage, each stage's
+    wall and the selected checkpoint."""
+    for loop in FLAGSHIP_LOOPS[kind]:
+        r = rep[loop]
+        cov = (r["tube_coverage_on_trace"] if kind == "rl"
+               else rep["tube_on_trace"]["coverage"])
+        print(f"[flagship {kind}] {loop}: per_resolve_batched_s "
+              f"{r['per_resolve_batched_s']} resolves_per_s "
+              f"{r['resolves_per_s']} adopted_frac {r['adopted_frac']} "
+              f"coverage {cov}")
+    walls = {s: v["wall_s"] for s, v in rep.items()
+             if isinstance(v, dict) and "wall_s" in v}
+    print(f"[flagship {kind}] wall per stage (s): {json.dumps(walls)}; "
+          f"process {wall:.1f} s")
+    if kind == "rl":
+        print(f"[flagship rl] selected checkpoint "
+              f"{rep['checkpoint_selection']['selected']} of "
+              f"{sorted(rep['checkpoint_selection']['candidates'])}; "
+              f"tube_train {json.dumps(rep['tube_train'])}; "
+              f"trace_conformal {json.dumps(rep['trace_conformal'])}")
+    print(f"[flagship {kind}] report " + json.dumps(rep))
+
+
+def finish_flagship(running, work, dev, timeout_s=900):
+    """Waits for the flagship processes, checks and prints their reports.
+    Returns the launches of both runs, per kernel (the substep kernel per
+    joint count)."""
+    hopper = hopper_constants(work / "hopper.urdf", dev)
+    total = {"bt_solve": 0, "bt_factor": 0, "bt_msolve": 0, "substep": {}}
+    for kind, script, t0, proc in running:
+        if kind not in FLAGSHIP_SCRIPTS:
+            continue
+        proc.wait(timeout=max(1.0, timeout_s - (time.time() - t0)))
+        wall = (work / f"{kind}.out").stat().st_mtime - t0
+        err = (work / f"{kind}.err").read_text()
+        check(proc.returncode == 0,
+              f"{script} exited {proc.returncode}: {err[-3000:]}")
+        lines = (work / f"{kind}.out").read_text().splitlines()
+        for line in lines:
+            if not line.startswith("{"):
+                print(f"[flagship {kind}] {line}")
+        rep = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+        if kind == "rl":
+            check(rep == json.loads((work / "rl_report.json").read_text()),
+                  "flagship rl: REPORT differs from the printed report")
+        expected = flagship_expected(kind, FLAGSHIP_KNOBS[kind], rep, hopper)
+        print_flagship(kind, rep, wall)
+        check_flagship(kind, rep, expected)
+        for k in ("bt_solve", "bt_factor", "bt_msolve"):
+            total[k] += rep["launches"][k]
+        for nj, n in rep["launches"]["substep"].items():
+            total["substep"][int(nj)] = total["substep"].get(int(nj), 0) + n
+    print(f"[launches] flagship path: {json.dumps(total)}")
+    return total
+
+
 def kernels_alone_ms(b, dev):
     """The three block-tridiagonal kernels alone (CUDA events over
     back-to-back launches) at block size b and the zoo's shapes, each
@@ -3251,7 +3524,16 @@ def main(argv=None):
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
         ap.error(f"unknown phases {unknown}")
+    running = []     # processes started by the phases, stopped at the end
+    try:
+        return run_phases(phases, running)
+    finally:
+        kill_all(running)
 
+
+def run_phases(phases, running):
+    """The phases named, in the script's order; every process a phase
+    starts is appended to ``running``."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3297,6 +3579,10 @@ def main(argv=None):
     if "substep" in phases:
         krec["substep"], krec["substep_nj4"], chains = substep_phase(dev)
         krec.update({f"substep_nj{nj}": r for nj, r in chains.items()})
+    if "flagship" in phases:
+        # the flagship pipelines run as processes of their own beside the
+        # phases up to the tube phase's end (after the kernel timings)
+        flagship_work = start_flagship(running)
     btk.reset_launches()
     if "l1" in phases:
         solve_mode("l1", B_L1, dev)
@@ -3329,6 +3615,13 @@ def main(argv=None):
         main_launches["substep_nj4"] += tube_nj4
         print(f"[launches] tube path: {json.dumps(tube_launches)} "
               f"substep_nj4 {tube_nj4}")
+    if "flagship" in phases:
+        flagship = finish_flagship(running, flagship_work, dev)
+        for k in ("bt_solve", "bt_factor", "bt_msolve"):
+            main_launches[k] += flagship[k]
+        for nj, n in flagship["substep"].items():
+            name = "substep" if nj == 12 else f"substep_nj{nj}"
+            main_launches[name] = main_launches.get(name, 0) + n
     if "plan" in phases:
         plan_launches, by_b = plan_phase(dev, tube_mlp)
         for k, v in plan_launches.items():

@@ -10,6 +10,8 @@ without one they raise instead of running on the CPU. Pass ``device="cpu"``
 to run on the CPU (the tests do). Solver code runs in full fp32 with TF32
 off (``utils.runtime.fp32_matmul``).
 """
+__version__ = "0.1.0"
+
 from .utils.runtime import fp32_matmul, resolve_device
 
 __all__ = ["fp32_matmul", "resolve_device"]

@@ -1,3 +1,4 @@
+from . import maths
 from .rom import (
     ROM_REGISTRY,
     DoubleInt2D,
@@ -10,6 +11,6 @@ from .rom import (
     make_rom,
 )
 
-__all__ = ["ROM_REGISTRY", "RomDynamics", "SingleInt2D", "DoubleInt2D",
-           "Unicycle", "LateralUnicycle", "ExtendedUnicycle",
+__all__ = ["maths", "ROM_REGISTRY", "RomDynamics", "SingleInt2D",
+           "DoubleInt2D", "Unicycle", "LateralUnicycle", "ExtendedUnicycle",
            "ExtendedLateralUnicycle", "make_rom"]

@@ -1,9 +1,8 @@
 """Quaternion / SO(3) / angle math as batched PyTorch functions.
 
-Counterpart of ``legged_gym_dev_tpu/core/maths.py`` (all but
-``torch_rand_sqrt_float``). Quaternions are ``(x, y, z, w)``
-(scalar-last), as in Isaac Gym and the JAX package. Every function is
-batched over leading axes.
+Counterpart of ``legged_gym_dev_tpu/core/maths.py``. Quaternions are
+``(x, y, z, w)`` (scalar-last), as in Isaac Gym and the JAX package.
+Every function is batched over leading axes.
 """
 from __future__ import annotations
 
@@ -153,6 +152,24 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     k = torch.where(small, 0.5 - angle ** 2 / 48.0,
                     torch.sin(half) / torch.where(small, 1.0, angle))
     return torch.cat([phi * k, torch.cos(half)], dim=-1)
+
+
+def _signed_sqrt_to_range(u: torch.Tensor, lower: float,
+                          upper: float) -> torch.Tensor:
+    """u in [-1, 1] through the sign-keeping square root, rescaled to
+    [lower, upper]."""
+    r = torch.where(u < 0.0, -torch.sqrt(-u), torch.sqrt(u))
+    return (r + 1.0) / 2.0 * (upper - lower) + lower
+
+
+def torch_rand_sqrt_float(gen: torch.Generator, lower: float, upper: float,
+                          shape) -> torch.Tensor:
+    """Signed-sqrt-shaped random floats in [lower, upper], on ``gen``'s
+    device: u ~ U(-1, 1) through the sign-keeping square root, rescaled;
+    the samples lean toward the interval's ends (used for velocity
+    resets)."""
+    u = torch.rand(shape, generator=gen, device=gen.device) * 2.0 - 1.0
+    return _signed_sqrt_to_range(u, lower, upper)
 
 
 def masked_update(mask: torch.Tensor, new: torch.Tensor,

@@ -1,6 +1,8 @@
 from .base import ShardedEnv, Transition, guard_finite_state
 from .registry import TaskRegistry, task_registry
+from .rom_tracking import RomTrackingEnv, RomTrackingEnvState
 from . import presets  # noqa: F401  (registers preset tasks)
+from .hopper_trajectory import HopperTrajectoryEnv
 from .legged_robot_trajectory import (
     LeggedRobotTrajectoryEnv,
     TrajectoryEnvState,
@@ -13,6 +15,9 @@ __all__ = [
     "guard_finite_state",
     "TaskRegistry",
     "task_registry",
+    "RomTrackingEnv",
+    "RomTrackingEnvState",
+    "HopperTrajectoryEnv",
     "LeggedRobotTrajectoryEnv",
     "TrajectoryEnvState",
     "LeggedRobotVelocityEnv",

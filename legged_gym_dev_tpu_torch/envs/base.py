@@ -12,7 +12,7 @@ obs, reward, done, extras).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
@@ -23,6 +23,42 @@ class Transition(NamedTuple):
     reward: torch.Tensor       # (B,)
     done: torch.Tensor         # (B,) bool: env was reset after this step
     info: Dict[str, Any]       # {'episode': {...}, 'time_outs': (B,), ...}
+
+
+def scaled_reward_terms(term_table: Dict[str, Callable],
+                        reward_scales: Dict[str, float], dt: float):
+    """The active (name, fn, scale) list: each scale times the policy
+    ``dt``, as the reference multiplies them; zero-scale terms and
+    'termination' (added unscaled by dt after the clip) are left out."""
+    active = []
+    for name, scale in reward_scales.items():
+        if scale == 0 or name == "termination":
+            continue
+        if name not in term_table:
+            raise ValueError(
+                f"Reward term '{name}' not in table {sorted(term_table)}")
+        active.append((name, term_table[name], float(scale) * dt))
+    return active
+
+
+def compute_total_reward(active_terms, env, state, only_positive=False,
+                         termination_fn=None, termination_scale=0.0):
+    """(total, {name: term}): the scaled terms summed, the total clipped
+    at 0 when ``only_positive``, then the termination term added after
+    the clip."""
+    total = 0.0
+    episode = {}
+    for name, fn, scale in active_terms:
+        r = fn(env, state) * scale
+        total = total + r
+        episode[name] = r
+    if only_positive:
+        total = torch.clamp_min(torch.as_tensor(total), 0.0)
+    if termination_fn is not None and termination_scale != 0.0:
+        r = termination_fn(env, state) * termination_scale
+        total = total + r
+        episode["termination"] = r
+    return total, episode
 
 
 def guard_finite_state(robot, safe_state, explosion_vel: float = 50.0):

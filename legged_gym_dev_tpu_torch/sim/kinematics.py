@@ -435,6 +435,15 @@ def contact_kinematics(model: RobotModel, state: RobotState):
     return pos_a, vel_a, torch.stack(Js, dim=1)
 
 
+def dynamics_terms(model: RobotModel, state: RobotState):
+    """(M, bias, contact pos/vel/Jc) of one state: the array API for
+    observation and reward code and for tests."""
+    M = mass_matrix(model, state)
+    c = bias_forces(model, state)
+    pos, vel, Jc = contact_kinematics(model, state)
+    return M, c, pos, vel, Jc
+
+
 def substep_core(model: RobotModel, state: RobotState, tau: torch.Tensor,
                  contact_force_fn, base_mass_delta=None) -> torch.Tensor:
     """qdd (B, nv) from one scalar-graph pass.

@@ -8,6 +8,9 @@
   import``, relative imports resolved).
 - Entry points called without ``device`` mean the CUDA card: on a machine
   without one they raise instead of running on the CPU.
+- Every name a JAX ``__init__.py`` binds (read with ``ast``, never
+  imported) can be imported from the port's counterpart, but for the TPU
+  runtime helpers ``utils.force_cpu`` / ``setup_tpu_runtime``.
 """
 import ast
 from pathlib import Path
@@ -37,9 +40,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "legged_gym_dev_tpu")
 
 
 def _port_files():
-    """The package, chip_smoke.py and the card tests, which run on a
-    machine without JAX."""
-    return sorted(PACKAGE.rglob("*.py")) + [
+    """The package, the port's scripts, chip_smoke.py and the card tests,
+    which run on a machine without JAX."""
+    return sorted(PACKAGE.rglob("*.py")) + sorted(
+        (ROOT / "scripts").glob("torch_*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py",
         ROOT / "tests" / "torch_robot_cases.py",
         ROOT / "tests" / "test_torch_goldens.py"]
@@ -363,3 +367,83 @@ def test_mesh_entry_points_raise_without_card(monkeypatch, tmp_path):
                   "--num-envs", "4", "--max-iterations", "1",
                   "--log-root", str(tmp_path / "logs")])
     assert make_mesh(2, devices=["cpu", "cpu"]).size == 2
+
+
+# the JAX package's TPU runtime set-up, which the port's resolve_device,
+# fp32_matmul and --cpu stand in for
+NOT_PORTED = {"utils": {"force_cpu", "setup_tpu_runtime"}}
+
+
+def _bound_names(path):
+    """Public names an ``__init__.py`` binds at module level: relative
+    imports, definitions, assignments, ``__all__`` and ``__version__``."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.level:
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    names.add(t.id)
+                    if t.id == "__all__":
+                        names |= set(ast.literal_eval(node.value))
+    return {n for n in names if not n.startswith("_")
+            or n == "__version__"}
+
+
+JAX_INITS = sorted((ROOT / "legged_gym_dev_tpu").rglob("__init__.py"))
+
+
+@pytest.mark.parametrize(
+    "jax_init", JAX_INITS,
+    ids=lambda p: p.relative_to(ROOT / "legged_gym_dev_tpu").as_posix())
+def test_port_exports_every_jax_package_name(jax_init):
+    """Each name the JAX ``__init__.py`` binds is bound by the port's
+    counterpart and can be imported from it."""
+    import importlib
+
+    rel = jax_init.relative_to(ROOT / "legged_gym_dev_tpu")
+    sub = ".".join(rel.parent.parts)
+    ours = PACKAGE / rel
+    assert ours.exists(), f"no port counterpart of {rel}"
+    need = _bound_names(jax_init) - NOT_PORTED.get(sub, set())
+    missing = sorted(need - _bound_names(ours))
+    assert not missing, f"{ours.relative_to(ROOT)} lacks {missing}"
+    module = "legged_gym_dev_tpu_torch" + (f".{sub}" if sub else "")
+    mod = importlib.import_module(module)
+    assert not [n for n in sorted(need) if not hasattr(mod, n)]
+
+
+def test_exports_rule_reads_the_jax_names():
+    """The rule sees what it must: the names this port once lacked, and
+    only the two runtime helpers are left out."""
+    by_sub = {p.parent.name: _bound_names(p) for p in JAX_INITS}
+    assert {"CheckpointManager", "OnPolicyRunner"} <= by_sub["rl"]
+    assert {"RomTrackingEnv", "RomTrackingEnvState",
+            "HopperTrajectoryEnv"} <= by_sub["envs"]
+    assert {"RomSim", "RomSimState"} <= by_sub["sim"]
+    assert {"MLP", "softplus_beta"} <= by_sub["tube"]
+    assert "maths" in by_sub["core"]
+    assert by_sub["utils"] == NOT_PORTED["utils"]
+
+
+def test_flagship_entry_points_raise_without_card(monkeypatch):
+    """Both flagship pipelines, called without ``device``, raise on a
+    machine with no card (before any work), as their scripts do without
+    ``E2E_CPU`` / ``--cpu``."""
+    import importlib.util
+
+    _no_card(monkeypatch)
+    for name, fn in (("torch_flagship_e2e", "run_flagship"),
+                     ("torch_flagship_rl_e2e", "run_rl_flagship")):
+        path = ROOT / "scripts" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"{name}_rule", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(module, fn)()
+        monkeypatch.delenv("E2E_CPU", raising=False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            module.main([])
