@@ -184,7 +184,23 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    the substep kernel (nj=4) launched exactly as often as the knobs say
    (``flagship_expected``); per-resolve latency, resolves/s, adoption,
    coverage, each stage's wall and the selected checkpoint are printed;
-17. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
+17. scenarios phase (main path of the scenarios slice), a process of its
+   own (``--scenarios-child``) started after the plan phase and read after
+   the play phase: ``[scenarios]`` bench.py's gap batch at bench width
+   (N=50, 20x10; l1 at B=2048, NN_oneshot at B=1024, refresh 3) with a
+   per-scenario ROM (``vel_max`` per axis in [0.18, 0.22], ``dt`` in
+   [0.09, 0.11]) and, for NN_oneshot, a per-scenario net (the bench net
+   plus N(0, 0.01) on its last layer and U(-0.2, 0.2) on its bias),
+   timed in turns with the shared form (a warm-up each, then shared,
+   per-scenario, per-scenario, shared): solves/s, each rep's wall, the
+   feasible fraction and the max violation, every solve's bt_solve /
+   bt_factor / bt_msolve launches exactly the schedule's; then
+   ``[scenarios ref]`` the per-scenario batch at B=8, 8x6 on the card
+   against the CPU (plans within 2e-3, a draw off a kink of the net);
+18. mjcf phase: ``build_mjcf`` of every test robot of
+   ``tests/torch_robot_cases.py`` (robots and chains) parsed with
+   ``xml.etree``, its bodies and joints the model's;
+19. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
    joint count on rows of their own, the instances no robot runs measured
    on their chains in the substep phase; ``bt_solve``'s row counts the
    other block sizes' launches; ``substep_sharded``, K3 launched shard by
@@ -198,10 +214,11 @@ result line. Without a CUDA device it exits non-zero at once.
 Usage: ``python3 chip_smoke.py`` (all phases), or
 ``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
 debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl,
-train, train_rnn, tube, plan, robots, play, mesh, flagship; ``--phases
-plan`` is the planning slice alone, ``--phases robots`` the robots slice,
-``--phases play`` the play slice, ``--phases mesh`` the mesh slice,
-``--phases flagship`` the two flagship pipelines).
+train, train_rnn, tube, plan, robots, play, mesh, flagship, scenarios,
+mjcf; ``--phases plan`` is the planning slice alone, ``--phases robots``
+the robots slice, ``--phases play`` the play slice, ``--phases mesh`` the
+mesh slice, ``--phases flagship`` the two flagship pipelines,
+``--phases scenarios,mjcf`` the scenarios slice).
 """
 import argparse
 import concurrent.futures
@@ -218,7 +235,7 @@ import numpy as np
 
 PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl",
           "train", "train_rnn", "tube", "plan", "robots", "play", "mesh",
-          "flagship")
+          "flagship", "scenarios", "mjcf")
 N, H_REV = 50, 10
 B_L1, B_NN = 2048, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -591,11 +608,25 @@ def kernel_phase(dev):
 # main path
 # ---------------------------------------------------------------------------
 
+def bench_mlp_numpy(seed):
+    """bench.py's 130->128->128->50 softplus-head tube MLP as numpy
+    (weights (in, out), biases): Kaiming-uniform, the last layer x0.1 and
+    bias -2.5."""
+    wr = np.random.default_rng(seed + 1000)
+    sizes = [H_REV + (H_REV + N) * 2, 128, 128, N]
+    ws, bs = [], []
+    for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
+        bd = 1.0 / np.sqrt(fan_in)
+        ws.append(wr.uniform(-bd, bd, (fan_in, fan_out)))
+        bs.append(wr.uniform(-bd, bd, (fan_out,)))
+    ws[-1] = ws[-1] * 0.1
+    bs[-1] = bs[-1] * 0.0 - 2.5
+    return ws, bs
+
+
 def bench_batch(B, tube, dev, seed=0, mlp=None, h_rev=H_REV):
     """bench.py's randomised gap batch (numpy draws in bench.py's order)
-    and, for NN_oneshot, ``mlp`` or else the 130->128->128->50
-    softplus-head tube MLP with Kaiming-uniform weights, the last layer
-    x0.1 and bias -2.5."""
+    and, for NN_oneshot, ``mlp`` or else ``bench_mlp_numpy``'s net."""
     from legged_gym_dev_tpu_torch.interop import (
         mlp_from_numpy,
         trajopt_params_from_numpy,
@@ -605,16 +636,7 @@ def bench_batch(B, tube, dev, seed=0, mlp=None, h_rev=H_REV):
     prob = PROBLEM_DICT["gap"]
     nn = mlp
     if tube == "NN_oneshot" and mlp is None:
-        wr = np.random.default_rng(seed + 1000)
-        sizes = [H_REV + (H_REV + N) * 2, 128, 128, N]
-        ws, bs = [], []
-        for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
-            bd = 1.0 / np.sqrt(fan_in)
-            ws.append(wr.uniform(-bd, bd, (fan_in, fan_out)))
-            bs.append(wr.uniform(-bd, bd, (fan_out,)))
-        ws[-1] = ws[-1] * 0.1
-        bs[-1] = bs[-1] * 0.0 - 2.5
-        nn = mlp_from_numpy(ws, bs, activation="softplus_b5",
+        nn = mlp_from_numpy(*bench_mlp_numpy(seed), activation="softplus_b5",
                             final_activation="softplus", device=dev)
     rng = np.random.default_rng(seed)
     z0 = prob["start"] + rng.uniform(-0.15, 0.15, (B, 2))
@@ -3368,6 +3390,249 @@ def finish_flagship(running, work, dev, timeout_s=900):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Scenarios slice: per-scenario ROMs and tube networks; the MJCF export
+# ---------------------------------------------------------------------------
+
+SCEN_SEED = 0        # the draws of the timed batches
+SCEN_REF_SEED = 1    # the [scenarios ref] batch: away from a kink of the net
+
+
+def scenario_draws(B, seed, mlp=None):
+    """Each scenario's own ``vel_max`` per axis in [0.18, 0.22], ``dt`` in
+    [0.09, 0.11] and, given the case net ``mlp`` (numpy weights, biases),
+    its own net: ``mlp`` plus N(0, 0.01) on the last layer and U(-0.2,
+    0.2) on its bias (leading axis B)."""
+    rng = np.random.default_rng(seed + 2000)
+    d = dict(vel_max=rng.uniform(0.18, 0.22, (B, 2)).astype(np.float32),
+             dt=rng.uniform(0.09, 0.11, B).astype(np.float32))
+    if mlp is not None:
+        ws = [np.repeat(np.float32(w)[None], B, 0) for w in mlp[0]]
+        bs = [np.repeat(np.float32(b)[None], B, 0) for b in mlp[1]]
+        ws[-1] += rng.normal(0.0, 0.01, ws[-1].shape).astype(np.float32)
+        bs[-1] += rng.uniform(-0.2, 0.2, bs[-1].shape).astype(np.float32)
+        d.update(ws=ws, bs=bs)
+    return d
+
+
+def scenario_batch(B, tube, dev, seed=SCEN_SEED):
+    """``bench_batch`` (the same starts, goals and obstacles) with a
+    per-scenario ROM and, for NN_oneshot, a per-scenario tube net of
+    ``scenario_draws``."""
+    from legged_gym_dev_tpu_torch.core import make_rom
+    from legged_gym_dev_tpu_torch.interop import mlp_from_numpy
+    from legged_gym_dev_tpu_torch.solver import PROBLEM_DICT
+
+    prob = PROBLEM_DICT["gap"]
+    p = bench_batch(B, tube, dev, seed=seed)
+    d = scenario_draws(B, seed, bench_mlp_numpy(seed)
+                       if tube == "NN_oneshot" else None)
+    rom = make_rom("SingleInt2D", d["dt"], [-prob["pos_max"]] * 2,
+                   [prob["pos_max"]] * 2, -d["vel_max"], d["vel_max"],
+                   device=dev)
+    nn = None
+    if tube == "NN_oneshot":
+        nn = mlp_from_numpy(d["ws"], d["bs"], activation="softplus_b5",
+                            final_activation="softplus", device=dev)
+    return p.replace(rom=rom, tube_params=nn)
+
+
+def scenario_solve(p, tube, dev, cfg):
+    """One staged solve with its wall and launches."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.solver import solve_tube_fast_batched
+
+    before = btk.launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = solve_tube_fast_batched(p, N, H_REV, tube_kind=tube, scaling=0.5,
+                                  cfg=cfg, warm_start="interpolate",
+                                  tube_ws="evaluate", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k: v - before[k] for k, v in btk.launches().items()}
+
+
+def scenarios_phase(dev):
+    """``[scenarios]``: the gap batch at bench width (N=50, 20x10; l1 at
+    B=2048, NN_oneshot at B=1024, refresh 3, ``linsolve="pallas"``) with
+    per-scenario ROMs and nets (``scenario_batch``) beside the shared
+    form, in turns: a warm-up of each, then shared, per-scenario,
+    per-scenario, shared. Every solve's K1 / K2f / K2s launches are
+    exactly the schedule's. Returns the record and the phase's launches."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.solver import ALConfig
+
+    rec, total = {}, {"bt_solve": 0, "bt_factor": 0, "bt_msolve": 0}
+    for tube, B in (("l1", B_L1), ("NN_oneshot", B_NN)):
+        nn = tube == "NN_oneshot"
+        cfg = (ALConfig(nn_basis_refresh=3, linsolve="pallas") if nn
+               else ALConfig(linsolve="pallas"))
+        want = solve_launches(cfg.outer_iters, cfg.inner_iters, 3, nn=nn)
+        forms = {"shared": bench_batch(B, tube, dev, seed=SCEN_SEED),
+                 "per_scenario": scenario_batch(B, tube, dev)}
+        check(forms["per_scenario"].rom.per_scenario
+              and (not nn or forms["per_scenario"].tube_params.per_scenario),
+              f"[scenarios] {tube}: the batch is not per scenario")
+        walls = {f: [] for f in forms}
+        last = {}
+        for i, form in enumerate(("shared", "per_scenario", "shared",
+                                  "per_scenario", "per_scenario",
+                                  "shared")):
+            out, wall, launched = scenario_solve(forms[form], tube, dev, cfg)
+            check(launched == want, f"[scenarios] {tube} {form}: launches "
+                  f"{launched}, the schedule's {want}")
+            for k in total:
+                total[k] += launched[k]
+            if i >= 2:                       # the first two warm up
+                walls[form].append(wall)
+            last[form] = out
+        r = {"batch": B, "launches_per_solve": want}
+        for form, out in last.items():
+            viol = out.sol.viol.cpu().numpy()
+            check(tuple(out.z.shape) == (B, N + 1, 2)
+                  and bool(torch.isfinite(out.z).all())
+                  and bool(torch.isfinite(out.w).all()),
+                  f"[scenarios] {tube} {form}: non-finite plan")
+            r[form] = dict(
+                solves_per_s=B / float(np.mean(walls[form])),
+                rep_wall_s=walls[form],
+                feasible_frac=float(np.mean(viol < 1e-3)),
+                max_viol=float(viol.max()))
+        vmax = forms["per_scenario"].rom.v_max[:, None, :]
+        check(bool(torch.all(last["per_scenario"].v.abs() <= vmax + 1e-6)),
+              f"[scenarios] {tube}: a plan leaves its scenario's bound")
+        r["per_scenario_over_shared"] = (r["per_scenario"]["solves_per_s"]
+                                         / r["shared"]["solves_per_s"])
+        print(f"[scenarios] {tube} " + json.dumps(r))
+        check(r["per_scenario"]["feasible_frac"] >= 0.9,
+              f"[scenarios] {tube}: feasible fraction "
+              f"{r['per_scenario']['feasible_frac']}")
+        rec[tube] = r
+    print(f"[launches] scenarios path: {json.dumps(total)}")
+    return rec, total
+
+
+def scenarios_reference(dev, B=8):
+    """``[scenarios ref]``: the per-scenario batch (B=8, 8x6) on the card
+    (kernels) against the CPU (plain versions), l1 and NN_oneshot, on a
+    draw away from a kink of the net. Bar: plans within 2e-3, as
+    ``[ref]``."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.solver import (
+        ALConfig,
+        solve_tube_fast_batched,
+    )
+
+    rec = {}
+    for tube in ("l1", "NN_oneshot"):
+        cfg = ALConfig(outer_iters=8, inner_iters=6, linsolve="pallas",
+                       nn_basis_refresh=(3 if tube == "NN_oneshot"
+                                         else "inner"))
+        outs = [solve_tube_fast_batched(
+            scenario_batch(B, tube, d, seed=SCEN_REF_SEED), N, H_REV,
+            tube_kind=tube, scaling=0.5, cfg=cfg, warm_start="interpolate",
+            tube_ws="evaluate", device=d)
+            for d in (dev, torch.device("cpu"))]
+        dz = float((outs[0].z.cpu() - outs[1].z).abs().max())
+        dw = float((outs[0].w.cpu() - outs[1].w).abs().max())
+        print(f"[scenarios ref] {tube} B={B}: card vs CPU max|dz|={dz:.3e} "
+              f"max|dw|={dw:.3e}")
+        check(dz < 2e-3 and dw < 2e-3,
+              f"[scenarios ref] {tube}: card and CPU disagree")
+        rec[tube] = dict(max_dz=dz, max_dw=dw)
+    return rec
+
+
+def scenarios_child(out_path):
+    """The scenarios slice in a process of its own (``--scenarios-child``),
+    beside the parent's phases: ``[scenarios]`` then ``[scenarios ref]``,
+    written to ``out_path`` as JSON."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    with fp32_matmul():
+        rec, launches = scenarios_phase(dev)
+        ref = scenarios_reference(dev)
+    Path(out_path).write_text(json.dumps(dict(
+        scenarios=rec, ref=ref, launches=launches,
+        wall_s=time.perf_counter() - t0)))
+    return 0
+
+
+def start_scenarios(running):
+    """``scenarios_child`` as a process on the card, appended to
+    ``running``. Returns its working directory."""
+    import shutil
+
+    work = ROOT / "build" / "chip_smoke_scenarios"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    with open(work / "out", "w") as out, open(work / "err", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--scenarios-child", str(work / "rec.json")],
+            cwd=ROOT, stdout=out, stderr=err)
+    running.append(("scenarios", "chip_smoke.py", time.time(), proc))
+    return work
+
+
+def finish_scenarios(running, work, timeout_s=600):
+    """Waits for the scenarios process, prints its lines and checks its
+    exit. Returns its record."""
+    for kind, _, t0, proc in running:
+        if kind != "scenarios":
+            continue
+        proc.wait(timeout=max(1.0, timeout_s - (time.time() - t0)))
+        for line in (work / "out").read_text().splitlines():
+            print(line)
+        err = (work / "err").read_text()
+        check(proc.returncode == 0,
+              f"scenarios process exited {proc.returncode}: {err[-3000:]}")
+        rec = json.loads((work / "rec.json").read_text())
+        print(f"[scenarios] process wall {time.time() - t0:.1f} s "
+              f"(its phases {rec['wall_s']:.1f} s)")
+        return rec
+    raise RuntimeError("no scenarios process was started")
+
+
+def mjcf_phase():
+    """``[mjcf]``: ``build_mjcf`` of every test robot of
+    ``tests/torch_robot_cases.py`` (the robots and the chains), parsed with
+    ``xml.etree``: one body a link of the composed model, one joint a
+    joint (the model's names, in order) and a free joint on the base."""
+    import xml.etree.ElementTree as ET
+
+    from legged_gym_dev_tpu_torch.sim.dynamics import RobotModel
+    from legged_gym_dev_tpu_torch.sim.mjcf import build_mjcf
+    from legged_gym_dev_tpu_torch.sim.urdf import parse_urdf
+
+    cases = robot_cases()
+    rec = {}
+    for name in (*cases.ROBOTS, *cases.CHAINS):
+        spec = parse_urdf(cases.robot_config(name)["urdf"])
+        model = RobotModel.from_spec(spec)
+        root = ET.fromstring(build_mjcf(spec))
+        bodies = root.findall(".//body")
+        joints = root.findall(".//joint")
+        check(len(bodies) == model.nb and len(joints) == model.nj
+              and len(root.findall(".//freejoint")) == 1
+              and [j.get("name") for j in joints] == list(model.dof_names),
+              f"[mjcf] {name}: {len(bodies)} bodies, {len(joints)} joints "
+              f"for a model of {model.nb} bodies, {model.nj} joints")
+        rec[name] = [model.nb, model.nj]
+    print("[mjcf] bodies, joints of each test robot's MJCF: "
+          + json.dumps(rec))
+    return rec
+
+
 def kernels_alone_ms(b, dev):
     """The three block-tridiagonal kernels alone (CUDA events over
     back-to-back launches) at block size b and the zoo's shapes, each
@@ -3519,7 +3784,10 @@ def kernel_phase_b10(dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--scenarios-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.scenarios_child:
+        return scenarios_child(args.scenarios_child)
     phases = [s for s in args.phases.split(",") if s]
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -3628,6 +3896,11 @@ def run_phases(phases, running):
             # the b=10 instances have rows of their own in the kernels line
             main_launches[k] += v - by_b[k].get(10, 0)
             main_launches[f"{k}_b10"] = by_b[k].get(10, 0)
+    if "scenarios" in phases:
+        # per-scenario ROMs and nets: a process of its own beside the
+        # robots and play phases (the shared form timed in turns with it)
+        scenarios_work = start_scenarios(running)
+        t_overlap = time.perf_counter()
     if "robots" in phases:
         k3, by_nj = robots_phase(dev)
         # each K3 instance has a row: nj=12 is "substep" (the A1 and
@@ -3648,6 +3921,14 @@ def run_phases(phases, running):
             main_launches[name] = main_launches.get(name, 0) + n
         for k, v in bt_play.items():
             main_launches[k] += v
+    if "scenarios" in phases:
+        print("[scenarios] beside the robots and play phases, which took "
+              f"{time.perf_counter() - t_overlap:.1f} s")
+        scen = finish_scenarios(running, scenarios_work)
+        for k, v in scen["launches"].items():
+            main_launches[k] += v
+    if "mjcf" in phases:
+        mjcf_phase()
     if "mesh" in phases:
         krec["substep_sharded"], mesh_launches = mesh_phase(dev)
         for k, v in mesh_launches.items():

@@ -12,6 +12,16 @@ off (``utils.runtime.fp32_matmul``).
 """
 __version__ = "0.1.0"
 
+# Headless GL for mujoco.Renderer (utils/video.py, utils/live_viewer.py):
+# a machine without a display initializes Mesa's EGL only on the
+# surfaceless platform. mujoco reads MUJOCO_GL when it is imported, so the
+# defaults are in place before anything imports it.
+import os as _os
+
+_os.environ.setdefault("MUJOCO_GL", "egl")
+_os.environ.setdefault("EGL_PLATFORM", "surfaceless")
+del _os
+
 from .utils.runtime import fp32_matmul, resolve_device
 
 __all__ = ["fp32_matmul", "resolve_device"]

@@ -1,8 +1,7 @@
 """Command-line entry point of the port: ``train``, ``play``,
 ``collect``, ``train-tube``, ``plan`` and ``mpc``.
 
-Counterpart of those subcommands of ``legged_gym_dev_tpu/cli.py``
-(``play --video`` and ``--live`` wait for the MuJoCo tooling):
+Counterpart of those subcommands of ``legged_gym_dev_tpu/cli.py``:
 
     python -m legged_gym_dev_tpu_torch.cli train \\
         --config configs/rl/hopper_single_int.yaml
@@ -26,7 +25,10 @@ data-parallel over N CUDA cards (N CPU shards with ``--cpu``). ``play`` resumes 
 deterministic policy without observation noise, logs env 0's signals
 (``--mat``, ``--plot``) and exports the policy (``--export``: TorchScript
 and a ``torch.export`` program, ONNX where ``onnx`` is installed; the
-stateful LSTM TorchScript module for a recurrent run). ``collect``
+stateful LSTM TorchScript module for a recurrent run); ``--video FILE``
+renders env 0's logged rollout with MuJoCo (``--video-steps`` frames) and
+``--live [PORT]`` serves the browser viewer during it; both need the
+``mujoco`` package and say so where it is missing. ``collect``
 records ROM-tracking rollouts (the physics-free ``rom_tracking`` task with
 its PD tracker, or a rigid-body trajectory task with the Raibert heuristic
 or a trained policy) into an ``.npz`` file or ``.tdl`` shards. ``train-tube`` trains a
@@ -180,13 +182,18 @@ _EXPORT_LABELS = {"torchscript": "TorchScript",
                   "lstm_torchscript": "LSTM TorchScript"}
 
 
-def play(env, runner, steps, export="", plot="", mat=""):
+def play(env, runner, steps, export="", plot="", mat="", record=False,
+         viewer=None):
     """Roll ``runner``'s deterministic policy on ``env`` for ``steps``
     env steps from a reset (generator seeded 0), logging env 0's signals
     with one host transfer a step; export the policy into the directory
     ``export`` first, save the dashboard to ``plot`` and the log to
-    ``mat`` (.mat) when given. Returns {"exports": {kind: path},
-    "rollout_s": wall seconds of the steps, "logger": the Logger}."""
+    ``mat`` (.mat) when given. ``record`` keeps env 0's ``(base_pos,
+    base_quat, q)`` trace of a rigid-body env (in the same transfer);
+    ``viewer`` (a ``utils.live_viewer.LiveViewer``) gets that state every
+    step, pauses the loop while paused and ends it on "quit". Returns
+    {"exports": {kind: path}, "rollout_s": wall seconds of the steps,
+    "logger": the Logger, "trace": the recorded trace, a list}."""
     import time
 
     import numpy as np
@@ -217,18 +224,37 @@ def play(env, runner, steps, export="", plot="", mat=""):
     logger = Logger(dt=env.dt)
     gen = torch.Generator(device=env.device)
     gen.manual_seed(0)
+    trace = []
     with torch.no_grad():
         state, obs = env.reset(gen)
         t0 = time.perf_counter()
-        for _ in range(steps):
+        i = 0
+        while i < steps:
+            if viewer is not None and viewer.paused:
+                time.sleep(0.05)
+                if "quit" in viewer.pop_events():
+                    break
+                continue
             state, tr = env.step(state, policy(obs))
             obs = tr.obs
             sig = _play_signals(env, state, tr)
-            flat = torch.cat([v.reshape(-1).float() for v in sig.values()])
+            r = getattr(state, "robot", None)
+            keep = r is not None and (record or viewer is not None)
+            vals = list(sig.values())
+            if keep:
+                vals += [r.base_pos[0], r.base_quat[0], r.q[0]]
+            flat = torch.cat([v.reshape(-1).float() for v in vals])
             host = np.split(flat.cpu().numpy(), np.cumsum(
-                [v.numel() for v in sig.values()])[:-1])
+                [v.numel() for v in vals])[:-1])
             logger.log_states({k: h.reshape(v.shape)
                                for (k, v), h in zip(sig.items(), host)})
+            if keep:
+                trace.append(tuple(host[len(sig):]))
+                if viewer is not None:
+                    viewer.push_state(*trace[-1])
+            if viewer is not None and "quit" in viewer.pop_events():
+                break
+            i += 1
         rollout_s = time.perf_counter() - t0
     if plot:
         logger.plot_states(plot)
@@ -236,12 +262,29 @@ def play(env, runner, steps, export="", plot="", mat=""):
     if mat:
         logger.save_mat(mat)
         print(f"state log saved: {mat}")
-    return {"exports": exports, "rollout_s": rollout_s, "logger": logger}
+    return {"exports": exports, "rollout_s": rollout_s, "logger": logger,
+            "trace": trace}
+
+
+def _require_mujoco(flag: str) -> None:
+    """``flag`` renders through MuJoCo: raise, naming it, when the
+    ``mujoco`` package is not installed (the card's machine has none)."""
+    import importlib.util
+
+    if importlib.util.find_spec("mujoco") is None:
+        raise SystemExit(f"cli play {flag} renders with MuJoCo, and the "
+                         "'mujoco' package is not installed here")
 
 
 def cmd_play(args):
+    import numpy as np
+
     from .envs import task_registry
 
+    video, live = args.video, args.live
+    for flag, on in (("--video", bool(video)), ("--live", live is not None)):
+        if on:
+            _require_mujoco(flag)
     env = task_registry.make_env(args.task, num_envs=args.num_envs,
                                  add_noise=False,
                                  device="cpu" if args.cpu else None)
@@ -250,11 +293,40 @@ def cmd_play(args):
     runner = task_registry.make_alg_runner(
         env, args.task, log_root=args.log_root, seed=0, resume=True,
         load_run=args.checkpoint, load_dir=args.load)
-    out = play(env, runner, args.steps, export=args.export, plot=args.plot,
-               mat=args.mat)
-    print(json.dumps({"steps": args.steps, "num_envs": env.num_envs,
-                      "rollout_s": out["rollout_s"],
-                      "exports": out["exports"]}))
+    viewer = None
+    if live is not None:
+        # the browser viewer (the reference's Isaac Gym viewer role, ref
+        # base_task.py:86-148 / play.py:96-110): frames over HTTP, keys
+        # back (ESC quit, V sync, SPACE pause, arrows/+-/F camera)
+        from .utils.live_viewer import LiveViewer
+
+        if not hasattr(env, "sim") or not hasattr(env.sim, "model"):
+            raise SystemExit(f"{args.task} has no rigid-body state to view")
+        viewer = LiveViewer(env.sim.model, port=live)
+    try:
+        out = play(env, runner, args.steps, export=args.export,
+                   plot=args.plot, mat=args.mat, record=bool(video),
+                   viewer=viewer)
+    finally:
+        if viewer is not None:
+            viewer.close()
+    result = {"steps": args.steps, "num_envs": env.num_envs,
+              "rollout_s": out["rollout_s"], "exports": out["exports"]}
+    if video:
+        # render the rollout that was just logged: env 0's recorded trace
+        from .utils.video import render_state_trace
+
+        trace = out["trace"]
+        if not trace:
+            raise SystemExit(f"{args.task} has no rigid-body state to "
+                             "render (physics-free ROM env)")
+        n_vid = min(len(trace), args.video_steps or min(args.steps, 250))
+        pos, quat, qs = (np.stack([t[k] for t in trace[:n_vid]])
+                         for k in range(3))
+        result["video"] = render_state_trace(env.sim.model, pos, quat, qs,
+                                             video, fps=1.0 / env.dt)
+        print(f"rollout video saved: {result['video']}")
+    print(json.dumps(result))
 
 
 def collect_rollouts(args):
@@ -709,6 +781,17 @@ def build_parser():
                     help="directory for the exported policy")
     pl.add_argument("--plot", default="", help="dashboard .png")
     pl.add_argument("--mat", default="", help=".mat state-log export")
+    pl.add_argument("--video", default="",
+                    help="render env 0's rollout to .mp4/.gif with "
+                         "mujoco.Renderer (needs the mujoco package)")
+    pl.add_argument("--live", type=int, nargs="?", const=0, default=None,
+                    metavar="PORT",
+                    help="serve an interactive live viewer over HTTP "
+                         "(0/omitted port = auto; browser keys: ESC quit, "
+                         "V sync, SPACE pause, arrows/+-/F camera; needs "
+                         "the mujoco package)")
+    pl.add_argument("--video-steps", type=int, default=0,
+                    help="frames to record (default: min(steps, 250))")
     pl.set_defaults(fn=cmd_play)
 
     c = sub.add_parser("collect")

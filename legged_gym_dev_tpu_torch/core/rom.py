@@ -6,14 +6,22 @@ six ROMs of the zoo (``SingleInt2D``, the tube-MPC plan ROM;
 the array form (``f``, ``proj_z``, ``des_pose_vel``, ``clip_v_z``) and the
 entry form (``f_entries``, ``f_jac_entries``) the staged solver uses.
 
-One ROM is shared by a whole scenario batch: ``dt`` is a Python float (held
-exactly at its float32 value, as the JAX leaf is float32) and the bounds are
-``(n,)`` / ``(m,)`` tensors. Methods take any leading batch axes.
+A ROM comes in two forms. The shared form serves a whole scenario batch:
+``dt`` is a Python float (held exactly at its float32 value, as the JAX leaf
+is float32) and the bounds are ``(n,)`` / ``(m,)`` tensors. The per-scenario
+form is the JAX package's vmapped ROM pytree: ``dt`` is a ``(B,)`` float32
+tensor and/or the bounds are ``(B, n)`` / ``(B, m)`` (``create`` with
+arrays, ``stack``). Array-form methods take inputs whose leading axis is the
+scenario axis, ``(B, ..., n)``; entry-form methods take entries ``(..., B,
+T)`` (the scenario axis second to last, a candidate axis may lead), where a
+per-scenario ``dt`` acts as a ``(B, 1)`` column. Products with a float32
+``dt`` tensor round as those with the float it replaces: one rounding of the
+exact product either way.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import ClassVar
+from typing import ClassVar, Sequence, Union
 
 import numpy as np
 import torch
@@ -29,28 +37,91 @@ class RomDynamics:
     n: ClassVar[int]
     m: ClassVar[int]
 
-    dt: float
-    z_min: torch.Tensor  # (n,)
-    z_max: torch.Tensor  # (n,)
-    v_min: torch.Tensor  # (m,)
-    v_max: torch.Tensor  # (m,)
+    dt: Union[float, torch.Tensor]  # float, or (B,) per scenario
+    z_min: torch.Tensor  # (n,) or (B, n)
+    z_max: torch.Tensor  # (n,) or (B, n)
+    v_min: torch.Tensor  # (m,) or (B, m)
+    v_max: torch.Tensor  # (m,) or (B, m)
 
     @classmethod
     def create(cls, dt, z_min, z_max, v_min, v_max,
                device=None) -> "RomDynamics":
+        """The shared form from a scalar ``dt`` and ``(n,)`` / ``(m,)``
+        bounds; the per-scenario form where ``dt`` is ``(B,)`` or a bound
+        carries a leading ``B`` axis."""
         dev = resolve_device(device)
 
         def t(x):
             return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
-        return cls(dt=float(np.float32(dt)), z_min=t(z_min), z_max=t(z_max),
-                   v_min=t(v_min), v_max=t(v_max))
+        return cls(dt=float(np.float32(dt)) if np.ndim(dt) == 0 else t(dt),
+                   z_min=t(z_min), z_max=t(z_max), v_min=t(v_min),
+                   v_max=t(v_max))
+
+    @classmethod
+    def stack(cls, roms: Sequence["RomDynamics"],
+              device=None) -> "RomDynamics":
+        """The per-scenario form of ``roms`` (one ROM of this class a
+        scenario, each shared-form) on ``device`` (None = the CUDA card)."""
+        if any(type(r) is not cls for r in roms):
+            raise ValueError(f"stack needs {cls.__name__} ROMs")
+        return cls.create(
+            [float(r.dt) for r in roms],
+            *(np.stack([getattr(r, k).cpu().numpy() for r in roms])
+              for k in ("z_min", "z_max", "v_min", "v_max")), device=device)
+
+    @property
+    def per_scenario(self) -> bool:
+        """True for the per-scenario form (a leading ``B`` axis on ``dt``
+        or on the bounds)."""
+        return isinstance(self.dt, torch.Tensor) or self.z_min.ndim == 2
+
+    @property
+    def batch_size(self):
+        """The scenario count of the per-scenario form, else None."""
+        if isinstance(self.dt, torch.Tensor):
+            return self.dt.shape[0]
+        return self.z_min.shape[0] if self.z_min.ndim == 2 else None
+
+    def select(self, rows) -> "RomDynamics":
+        """The per-scenario ROM of scenarios ``rows`` (a slice or an index
+        tensor); the shared form is every scenario's, and is returned."""
+        def take(t):
+            return t[rows] if isinstance(t, torch.Tensor) and (
+                t.ndim == 2 or t is self.dt) else t
+
+        return replace(self, dt=take(self.dt), z_min=take(self.z_min),
+                       z_max=take(self.z_max), v_min=take(self.v_min),
+                       v_max=take(self.v_max))
 
     def to(self, device) -> "RomDynamics":
-        return replace(self, z_min=self.z_min.to(device),
+        dt = self.dt
+        return replace(self, dt=dt.to(device) if isinstance(
+                           dt, torch.Tensor) else dt,
+                       z_min=self.z_min.to(device),
                        z_max=self.z_max.to(device),
                        v_min=self.v_min.to(device),
                        v_max=self.v_max.to(device))
+
+    def _dt(self, x):
+        """``dt`` against an array-form input ``x (B, ..., k)``."""
+        dt = self.dt
+        if isinstance(dt, torch.Tensor):
+            return dt.reshape(dt.shape + (1,) * (x.ndim - 1))
+        return dt
+
+    @property
+    def _dt_e(self):
+        """``dt`` against entries ``(..., B, T)``: a float or ``(B, 1)``."""
+        dt = self.dt
+        return dt[:, None] if isinstance(dt, torch.Tensor) else dt
+
+    @staticmethod
+    def _bound(t, x):
+        """A bound ``(k,)`` or ``(B, k)`` against ``x (B, ..., k)``."""
+        if t.ndim == 2:
+            return t.reshape(t.shape[:1] + (1,) * (x.ndim - 2) + t.shape[1:])
+        return t
 
     def f(self, z, v):
         raise NotImplementedError
@@ -81,7 +152,19 @@ class RomDynamics:
 
     def compute_state_dependent_input_bounds(self, z):
         shape = z.shape[:-1] + (self.m,)
-        return self.v_min.expand(shape), self.v_max.expand(shape)
+        return (self._bound(self.v_min, z).expand(shape),
+                self._bound(self.v_max, z).expand(shape))
+
+    def _state_input_bounds(self, z, k):
+        """Input bounds shrunk so the velocity states ``z[..., k:]`` stay
+        inside [z_min, z_max] after one step."""
+        dt = self._dt(z)
+        z_min, z_max = self._bound(self.z_min, z), self._bound(self.z_max, z)
+        v_max_z = torch.minimum(self._bound(self.v_max, z),
+                                (z_max[..., k:] - z[..., k:]) / dt)
+        v_min_z = torch.maximum(self._bound(self.v_min, z),
+                                (z_min[..., k:] - z[..., k:]) / dt)
+        return v_min_z, v_max_z
 
     def clip_v_z(self, z, v):
         v_min_z, v_max_z = self.compute_state_dependent_input_bounds(z)
@@ -106,7 +189,7 @@ class SingleInt2D(RomDynamics):
     m: ClassVar[int] = 2
 
     def f(self, z, v):
-        return z + self.dt * v
+        return z + self._dt(z) * v
 
     def proj_z(self, x):
         return x[..., :2]
@@ -121,10 +204,11 @@ class SingleInt2D(RomDynamics):
         return self._weights(w.position, w.position)
 
     def f_entries(self, z_e, v_e):
-        return [z_e[0] + self.dt * v_e[0], z_e[1] + self.dt * v_e[1]]
+        dt = self._dt_e
+        return [z_e[0] + dt * v_e[0], z_e[1] + dt * v_e[1]]
 
     def f_jac_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         return ([[1.0, 0.0], [0.0, 1.0]], [[dt, 0.0], [0.0, dt]])
 
 
@@ -136,8 +220,9 @@ class DoubleInt2D(RomDynamics):
     m: ClassVar[int] = 2
 
     def f(self, z, v):
-        pos = z[..., :2] + self.dt * z[..., 2:]
-        vel = z[..., 2:] + self.dt * v
+        dt = self._dt(z)
+        pos = z[..., :2] + dt * z[..., 2:]
+        vel = z[..., 2:] + dt * v
         return torch.cat([pos, vel], dim=-1)
 
     def proj_z(self, x):
@@ -158,19 +243,15 @@ class DoubleInt2D(RomDynamics):
 
     def compute_state_dependent_input_bounds(self, z):
         """Shrink the accel bounds so velocities stay inside [z_min, z_max]."""
-        v_max_z = torch.minimum(self.v_max,
-                                (self.z_max[2:] - z[..., 2:]) / self.dt)
-        v_min_z = torch.maximum(self.v_min,
-                                (self.z_min[2:] - z[..., 2:]) / self.dt)
-        return v_min_z, v_max_z
+        return self._state_input_bounds(z, 2)
 
     def f_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         return [z_e[0] + dt * z_e[2], z_e[1] + dt * z_e[3],
                 z_e[2] + dt * v_e[0], z_e[3] + dt * v_e[1]]
 
     def f_jac_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         A = [[1.0, 0.0, dt, 0.0], [0.0, 1.0, 0.0, dt],
              [0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]]
         B = [[0.0, 0.0], [0.0, 0.0], [dt, 0.0], [0.0, dt]]
@@ -188,7 +269,7 @@ class Unicycle(RomDynamics):
         dx = v[..., 0] * torch.cos(z[..., 2])
         dy = v[..., 0] * torch.sin(z[..., 2])
         dth = v[..., 1]
-        return z + self.dt * torch.stack([dx, dy, dth], dim=-1)
+        return z + self._dt(z) * torch.stack([dx, dy, dth], dim=-1)
 
     def proj_z(self, x):
         yaw = quat_to_euler_xyz(x[..., 3:7])[..., 2]
@@ -203,13 +284,13 @@ class Unicycle(RomDynamics):
         return self._weights(w.position, w.position, w.orientation)
 
     def f_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
         return [z_e[0] + dt * v_e[0] * c, z_e[1] + dt * v_e[0] * s,
                 z_e[2] + dt * v_e[1]]
 
     def f_jac_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
         A = [[1.0, 0.0, -dt * v_e[0] * s],
              [0.0, 1.0, dt * v_e[0] * c],
@@ -229,7 +310,7 @@ class LateralUnicycle(Unicycle):
         c, s = torch.cos(z[..., 2]), torch.sin(z[..., 2])
         dx = v[..., 0] * c - v[..., 1] * s
         dy = v[..., 0] * s + v[..., 1] * c
-        return z + self.dt * torch.stack([dx, dy, v[..., 2]], dim=-1)
+        return z + self._dt(z) * torch.stack([dx, dy, v[..., 2]], dim=-1)
 
     def des_pose_vel(self, z, v):
         c, s = torch.cos(z[..., 2]), torch.sin(z[..., 2])
@@ -243,14 +324,14 @@ class LateralUnicycle(Unicycle):
                              w.velocity, w.velocity, w.angular_velocity)
 
     def f_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
         return [z_e[0] + dt * (v_e[0] * c - v_e[1] * s),
                 z_e[1] + dt * (v_e[0] * s + v_e[1] * c),
                 z_e[2] + dt * v_e[2]]
 
     def f_jac_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
         A = [[1.0, 0.0, dt * (-v_e[0] * s - v_e[1] * c)],
              [0.0, 1.0, dt * (v_e[0] * c - v_e[1] * s)],
@@ -277,7 +358,7 @@ class ExtendedUnicycle(Unicycle):
     def f(self, z, v):
         dx = z[..., 3] * torch.cos(z[..., 2])
         dy = z[..., 3] * torch.sin(z[..., 2])
-        return z + self.dt * torch.stack(
+        return z + self._dt(z) * torch.stack(
             [dx, dy, z[..., 4], v[..., 0], v[..., 1]], dim=-1)
 
     def proj_z(self, x):
@@ -297,25 +378,21 @@ class ExtendedUnicycle(Unicycle):
     def compute_state_dependent_input_bounds(self, z):
         """Shrink the input bounds so the velocity states stay inside
         [z_min, z_max]."""
-        v_max_z = torch.minimum(self.v_max,
-                                (self.z_max[3:] - z[..., 3:]) / self.dt)
-        v_min_z = torch.maximum(self.v_min,
-                                (self.z_min[3:] - z[..., 3:]) / self.dt)
-        return v_min_z, v_max_z
+        return self._state_input_bounds(z, 3)
 
     def weighting_vector(self, w):
         return self._weights(w.position, w.position, w.orientation,
                              w.velocity, w.angular_velocity)
 
     def f_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
         return [z_e[0] + dt * z_e[3] * c, z_e[1] + dt * z_e[3] * s,
                 z_e[2] + dt * z_e[4], z_e[3] + dt * v_e[0],
                 z_e[4] + dt * v_e[1]]
 
     def f_jac_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
         A = [[1.0, 0.0, -dt * z_e[3] * s, dt * c, 0.0],
              [0.0, 1.0, dt * z_e[3] * c, dt * s, 0.0],
@@ -337,7 +414,7 @@ class ExtendedLateralUnicycle(ExtendedUnicycle):
         c, s = torch.cos(z[..., 2]), torch.sin(z[..., 2])
         dx = z[..., 3] * c - z[..., 4] * s
         dy = z[..., 3] * s + z[..., 4] * c
-        return z + self.dt * torch.cat(
+        return z + self._dt(z) * torch.cat(
             [torch.stack([dx, dy, z[..., 5]], dim=-1), v], dim=-1)
 
     def proj_z(self, x):
@@ -360,7 +437,7 @@ class ExtendedLateralUnicycle(ExtendedUnicycle):
                              w.velocity, w.velocity, w.angular_velocity)
 
     def f_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
         return [z_e[0] + dt * (z_e[3] * c - z_e[4] * s),
                 z_e[1] + dt * (z_e[3] * s + z_e[4] * c),
@@ -368,7 +445,7 @@ class ExtendedLateralUnicycle(ExtendedUnicycle):
                 z_e[4] + dt * v_e[1], z_e[5] + dt * v_e[2]]
 
     def f_jac_entries(self, z_e, v_e):
-        dt = self.dt
+        dt = self._dt_e
         c, s = torch.cos(z_e[2]), torch.sin(z_e[2])
         A = [[1.0, 0.0, dt * (-z_e[3] * s - z_e[4] * c), dt * c, -dt * s,
               0.0],

@@ -1,6 +1,7 @@
-"""Evaluation suite: tube coverage, error dynamics and velocity tracking.
+"""Evaluation suite: tube coverage, error dynamics, policy tracking and
+sim2sim.
 
-Counterpart of the tube parts of ``legged_gym_dev_tpu/evaluation.py``:
+Counterpart of ``legged_gym_dev_tpu/evaluation.py``:
 
 - ``evaluate_tube_one_step``, ``evaluate_tube_recursive`` and
   ``compare_tube_models``: one-step and rollout-recursive coverage of tube
@@ -12,14 +13,17 @@ Counterpart of the tube parts of ``legged_gym_dev_tpu/evaluation.py``:
 - ``evaluate_tracking_policy``: a tracking policy against the
   deterministic zero/square/circle trajectory fixtures;
 - ``evaluate_velocity_tracking``: command tracking and gait statistics of
-  a velocity-command policy.
+  a velocity-command policy;
+- ``evaluate_sim2sim_hopper`` and ``evaluate_sim2sim_hopper_reference``:
+  the port's rigid-body dynamics (plain ``forward_dynamics`` +
+  ``integrate`` on ``device``) against MuJoCo, on the MJCF export and on a
+  hand-written MJCF asset. They need ``mujoco`` on the host.
 
-Models run on the device their weights lie on. The sim2sim comparisons of
-the JAX module (MuJoCo) are not ported yet.
+Models run on the device their weights lie on.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -296,3 +300,183 @@ def evaluate_velocity_tracking(env, policy, gen: torch.Generator,
         "single_stance_moving": float(s[2]),
         "done_rate_per_step": float(s[3]),
     }
+
+
+# ---------------------------------------------------------------------------
+# Sim2sim: the port's dynamics against MuJoCo (ref evaluate_sim2sim.py)
+# ---------------------------------------------------------------------------
+
+# The reference project's hopper assets, relative to its root (as
+# ``envs.presets.HOPPER_URDF``); pass ``urdf_path`` / ``xml_path`` to use
+# other files.
+HOPPER_URDF = "resources/robots/hopper/urdf/hopper.urdf"
+HOPPER_XML = "resources/robots/hopper/urdf/hopper.xml"
+# The reference XML's joint names in the model's dof order (foot, wheels
+# 1-3), and its foot-spring servo.
+HOPPER_XML_JOINTS = ("knee", "joint_wheel1", "joint_wheel2", "joint_wheel3")
+HOPPER_XML_ACTUATOR = "position_actuator"
+
+
+def _free_fall_start(model, device, q0=0.0):
+    """The hopper 2 m above the ground, level, joints at rest but the foot
+    at ``q0``."""
+    from .sim.dynamics import RobotState
+
+    q = torch.zeros(1, model.nj, device=device)
+    q[0, 0] = q0
+    return RobotState(
+        base_pos=torch.tensor([[0.0, 0.0, 2.0]], device=device),
+        base_quat=torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=device),
+        q=q, v=torch.zeros(1, model.nv, device=device))
+
+
+def _roll(model, state, taus, dt, spring=None):
+    """``steps`` plain ``forward_dynamics`` + ``integrate`` steps of one
+    robot under joint torques ``taus (steps, nj)``; ``spring(q)`` adds a
+    torque on the first joint. Returns the base positions and joint
+    coordinates after each step, on the host."""
+    from .sim.dynamics import forward_dynamics, integrate
+
+    f_ext = torch.zeros(1, model.nv, device=state.q.device)
+    pos, qs = [], []
+    with torch.no_grad():
+        for tau in taus:
+            if spring is not None:
+                tau = torch.cat([tau[:1] + spring(state.q[0, 0]), tau[1:]])
+            qdd = forward_dynamics(model, state, tau[None], f_ext)
+            state = integrate(model, state, qdd, dt)
+            pos.append(state.base_pos[0])
+            qs.append(state.q[0])
+    return torch.stack(pos).cpu().numpy(), torch.stack(qs).cpu().numpy()
+
+
+def _random_torques(model, steps, torque_amp):
+    """The JAX function's torques: numpy seed 0, the foot's zeroed."""
+    rng = np.random.default_rng(0)
+    taus = (torque_amp * rng.normal(size=(steps, model.nj))).astype(
+        np.float32)
+    taus[:, 0] = 0.0  # keep the foot spring-free for the free-space check
+    return taus
+
+
+def evaluate_sim2sim_hopper(steps: int = 200, dt: float = 0.005,
+                            torque_amp: float = 0.5,
+                            save_mat: Optional[str] = None,
+                            urdf_path: str = HOPPER_URDF,
+                            device=None) -> Dict[str, float]:
+    """Free-space hopper trace against MuJoCo on the MJCF export
+    (``sim.mjcf.build_mjcf``) of the same URDF (a file or URDF text).
+
+    The port's rollout runs on ``device`` (None = the CUDA card; raises
+    without one); MuJoCo steps on the host. Reports the max divergence of
+    the base position and of the joints over the horizon.
+    """
+    from .sim.dynamics import RobotModel
+    from .sim.mjcf import build_mjcf
+    from .sim.urdf import parse_urdf
+    from .utils.runtime import resolve_device
+
+    dev = resolve_device(device)
+    import mujoco
+
+    spec = parse_urdf(urdf_path)
+    model = RobotModel.from_spec(spec)
+    m = mujoco.MjModel.from_xml_string(build_mjcf(spec, timestep=dt))
+    d = mujoco.MjData(m)
+    d.qpos[:3] = [0.0, 0.0, 2.0]
+    d.qpos[3] = 1.0
+
+    taus = _random_torques(model, steps, torque_amp)
+    pos_tr, q_tr = _roll(model, _free_fall_start(model, dev),
+                         torch.as_tensor(taus, device=dev), dt)
+    mj_pos, mj_q = [], []
+    for t in range(steps):
+        d.qfrc_applied[6:] = taus[t]
+        mujoco.mj_step(m, d)
+        mj_pos.append(d.qpos[:3].copy())
+        mj_q.append(d.qpos[7:].copy())
+    mj_pos, mj_q = np.stack(mj_pos), np.stack(mj_q)
+    out = {"free_space_pos_err": float(np.abs(pos_tr - mj_pos).max()),
+           "free_space_q_err": float(np.abs(q_tr - mj_q).max()),
+           "steps": steps}
+    if save_mat:
+        from scipy.io import savemat
+
+        savemat(save_mat, {"pos_ours": pos_tr, "pos_mjc": mj_pos,
+                           "q_ours": q_tr, "q_mjc": mj_q})
+    return out
+
+
+def evaluate_sim2sim_hopper_reference(
+        steps: int = 300, dt: float = 0.001, torque_amp: float = 0.5,
+        save_mat: Optional[str] = None, urdf_path: str = HOPPER_URDF,
+        xml_path: str = HOPPER_XML, joint_names=HOPPER_XML_JOINTS,
+        actuator: str = HOPPER_XML_ACTUATOR,
+        device=None) -> Dict[str, float]:
+    """Sim2sim against a hand-written MJCF asset of the hopper (the
+    reference's ``hopper.xml`` by default), independent of the port's MJCF
+    export.
+
+    ``joint_names`` are the XML's joints in the model's dof order (foot
+    first); ``actuator`` is the XML's position servo on the foot (kp 11732,
+    force range [-250, 0]: the foot spring), whose clamped force the
+    port's rollout applies too. Mesh geoms (visual only, their files may
+    be absent) are stripped before loading. The port's rollout runs on
+    ``device`` (None = the CUDA card; raises without one). Reports the
+    base position's and the foot's max error and the wheels' max relative
+    error.
+    """
+    import re
+
+    from .sim.dynamics import RobotModel
+    from .sim.urdf import parse_urdf
+    from .utils.runtime import resolve_device
+
+    dev = resolve_device(device)
+    import mujoco
+
+    with open(xml_path) as f:
+        xml = f.read()
+    xml = re.sub(r"<mesh[^>]*/>", "", xml)
+    xml = re.sub(r"<geom[^>]*type='mesh'[^>]*/>", "", xml)
+    m = mujoco.MjModel.from_xml_string(xml)
+    model = RobotModel.from_spec(parse_urdf(urdf_path))
+
+    adr = {m.joint(i).name: (m.joint(i).qposadr[0], m.joint(i).dofadr[0])
+           for i in range(m.njnt)}
+    d = mujoco.MjData(m)
+    d.qpos[:3] = [0.0, 0.0, 2.0]
+    d.qpos[3] = 1.0
+    d.qpos[adr[joint_names[0]][0]] = 0.05
+    taus = _random_torques(model, steps, torque_amp)
+    KP, CTRL = 11732.0, 0.05
+
+    def spring(q_foot):
+        return torch.clamp(KP * (CTRL - q_foot), -250.0, 0.0)
+
+    pos_tr, q_tr = _roll(model, _free_fall_start(model, dev, q0=0.05),
+                         torch.as_tensor(taus, device=dev), dt,
+                         spring=spring)
+    d.ctrl[m.actuator(actuator).id] = CTRL
+    mj_pos, mj_q = [], []
+    for t in range(steps):
+        for j, name in enumerate(joint_names):
+            d.qfrc_applied[adr[name][1]] = taus[t][j]
+        mujoco.mj_step(m, d)
+        mj_pos.append(d.qpos[:3].copy())
+        mj_q.append([d.qpos[adr[name][0]] for name in joint_names])
+    mj_pos, mj_q = np.stack(mj_pos), np.asarray(mj_q)
+    wheel_rel = (np.abs(q_tr[:, 1:] - mj_q[:, 1:]).max(0)
+                 / (1e-6 + np.abs(mj_q[:, 1:]).max(0)))
+    out = {
+        "free_space_pos_err": float(np.abs(pos_tr - mj_pos).max()),
+        "knee_err": float(np.abs(q_tr[:, 0] - mj_q[:, 0]).max()),
+        "wheel_rel_err": float(wheel_rel.max()),
+        "steps": steps,
+    }
+    if save_mat:
+        from scipy.io import savemat
+
+        savemat(save_mat, {"pos_ours": pos_tr, "pos_mjc": mj_pos,
+                           "q_ours": q_tr, "q_mjc": mj_q})
+    return out

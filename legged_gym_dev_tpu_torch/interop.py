@@ -23,7 +23,9 @@ def mlp_from_numpy(weights: Sequence[np.ndarray],
                    device=None) -> MLP:
     """The JAX ``MLP`` (``weights`` as ``(in, out)`` arrays, ``biases`` as
     ``(out,)``) as the port's ``MLP``, which stores W in the same
-    ``(in, out)`` layout (``x @ W + b``), so no transpose is needed."""
+    ``(in, out)`` layout (``x @ W + b``), so no transpose is needed. A
+    vmapped JAX MLP's leaves (``(B, in, out)``, ``(B, out)``, an
+    ``out_scale`` of ``(B,)``) give the per-scenario form."""
     dev = resolve_device(device)
 
     def t(x):
@@ -44,7 +46,10 @@ def trajopt_params_from_numpy(rom_name: str, dt, z_min, z_max, v_min, v_max,
     ...)``). Per-scenario inputs may be given once for the batch or with a
     leading batch axis (see ``TrajOptParams.create``); the same numpy
     arrays given to the JAX package's ``TrajOptParams.create`` (and
-    broadcast there) describe the same problem."""
+    broadcast there) describe the same problem. A ``(B,)`` ``dt`` or
+    ``(B, n)`` / ``(B, m)`` bounds make the ROM per scenario, as the
+    leaves of a vmapped JAX ``TrajOptParams``, and ``tube_params`` may be
+    a per-scenario ``MLP`` (``mlp_from_numpy`` of such leaves)."""
     dev = resolve_device(device)
     rom = make_rom(rom_name, dt, z_min, z_max, v_min, v_max, device=dev)
     return TrajOptParams.create(
@@ -330,7 +335,7 @@ def tube_mlp_from_numpy(jax_mlp, device=None) -> MLP:
     """The JAX package's tube ``MLP`` with numpy leaves (as its
     ``train-tube --out`` pickles it, after ``jax.tree.map(np.asarray,
     ...)``) as the port's ``MLP``: weights, biases, both activations and
-    ``out_scale``."""
+    ``out_scale``; a vmapped MLP's leaves give the per-scenario form."""
     out_scale = getattr(jax_mlp, "out_scale", None)
     return mlp_from_numpy(
         list(jax_mlp.weights), list(jax_mlp.biases),

@@ -2,7 +2,9 @@
 
 Counterpart of ``legged_gym_dev_tpu/parallel/mesh.py``. The parallel axis
 is the scenario / env batch ("dp"): solver scenarios and env state shard
-over it, network parameters replicate.
+over it, network parameters replicate. A per-scenario network (a module
+with ``per_scenario`` set, as ``tube.models.MLP`` of ``(B, in, out)``
+weights) is batch data and shards along its scenario axis instead.
 
 JAX shards one global array over the mesh and XLA partitions the program.
 PyTorch has no such array, so the port shards the way one process drives
@@ -187,6 +189,16 @@ def _module_device(m: torch.nn.Module):
     return None
 
 
+def _rows(x):
+    """The leading (batch) extent of a leaf: a tensor's first dim, a
+    per-scenario module's scenario count; None for anything else."""
+    if isinstance(x, torch.Tensor):
+        return x.shape[0] if x.ndim >= 1 else None
+    if isinstance(x, torch.nn.Module) and getattr(x, "per_scenario", False):
+        return x.batch_size
+    return None
+
+
 def place(tree, device):
     """``tree`` on ``device``: tensors moved (kept where they are already
     there), modules elsewhere copied there, a function that holds its
@@ -213,23 +225,27 @@ def shard_batch(tree, mesh: Mesh, axis="dp",
     """Shard every tensor leaf whose leading dim divides by the mesh extent
     over ``axis`` (a name or a tuple of names, e.g. ``("dcn", "ici")``)
     and, given ``batch_size``, equals it: shard i takes rows [i b, (i+1) b)
-    as its own copy on its device. Every other leaf replicates (``place``):
-    with ``batch_size`` an LSTM state shaped (2, B nj, 8) or a (4, 2)
-    command-range table stays whole on every shard."""
+    as its own copy on its device. A per-scenario module (``_rows``) is
+    split the same way along its scenario axis (``select``). Every other
+    leaf replicates (``place``): with ``batch_size`` an LSTM state shaped
+    (2, B nj, 8), a (4, 2) command-range table or a shared tube network
+    stays whole on every shard."""
     k = mesh.extent(axis)
 
     def splits(x):
-        return (isinstance(x, torch.Tensor) and x.ndim >= 1
-                and x.shape[0] % k == 0
-                and (batch_size is None or x.shape[0] == batch_size))
+        rows = _rows(x)
+        return (rows is not None and rows % k == 0
+                and (batch_size is None or rows == batch_size))
 
     split = [splits(x) for x in tree_leaves(tree)]
-    sizes = {x.shape[0] for x, s in zip(tree_leaves(tree), split) if s}
+    sizes = {_rows(x) for x, s in zip(tree_leaves(tree), split) if s}
     shards = []
     for i, dev in enumerate(mesh.devices.flat):
         def put(x, i=i, dev=dev):
             if splits(x):
-                b = x.shape[0] // k
+                b = _rows(x) // k
+                if isinstance(x, torch.nn.Module):
+                    return x.select(slice(i * b, (i + 1) * b)).to(dev)
                 return x[i * b:(i + 1) * b].to(dev, copy=True)
             return place(x, dev)
 
@@ -256,7 +272,8 @@ def replicate(tree, mesh: Mesh) -> Sharded:
 
 def gather(sharded: Sharded, batch_size: Optional[int] = None):
     """The sharded batch as one tree on ``mesh.devices.flat[0]``: tensor
-    leaves of the batch concatenated in shard order, every other leaf
+    leaves of the batch (and per-scenario modules, ``cat``) concatenated
+    in shard order, every other leaf
     shard 0's. The batch leaves are those ``shard_batch`` split; given
     ``batch_size`` (or, for the shards of a computation, the one
     ``sharded`` records), those whose leading dim is it over the mesh
@@ -271,15 +288,16 @@ def gather(sharded: Sharded, batch_size: Optional[int] = None):
             raise ValueError("gather needs the batch size of a Sharded "
                              "that shard_batch did not make")
         per = B // mesh.size
-        batch = [isinstance(x, torch.Tensor) and x.ndim >= 1
-                 and x.shape[0] == per for x in leaves[0]]
+        batch = [_rows(x) == per for x in leaves[0]]
     it = iter(range(len(leaves[0])))
 
     def cat(x):
         j = next(it)
         if batch[j]:
-            return torch.cat([leaves[i][j].to(dev0)
-                              for i in range(len(leaves))])
+            parts = [leaves[i][j] for i in range(len(leaves))]
+            if isinstance(x, torch.nn.Module):
+                return type(x).cat(parts, device=dev0)
+            return torch.cat([t.to(dev0) for t in parts])
         return place(x, dev0)
 
     return tree_map(cat, sharded[0])

@@ -42,12 +42,16 @@ def _next_bucket(n: int, minimum: int = 128) -> int:
 
 
 def _take(p: TrajOptParams, rows: torch.Tensor) -> TrajOptParams:
-    """The scenarios ``rows`` of a batch (the ROM and the tube net are
-    shared by the batch)."""
+    """The scenarios ``rows`` of a batch, a per-scenario ROM's and tube
+    net's among them (shared ones serve every scenario)."""
     kw = {}
     for f in dataclasses.fields(p):
         v = getattr(p, f.name)
-        kw[f.name] = v[rows] if isinstance(v, torch.Tensor) else v
+        if isinstance(v, torch.Tensor):
+            v = v[rows]
+        elif f.name == "rom" or getattr(v, "per_scenario", False):
+            v = v.select(rows)
+        kw[f.name] = v
     return TrajOptParams(**kw)
 
 
@@ -90,7 +94,9 @@ def solve_tube_fast_bucketed(
     sp = _staged_problem(p_batch, N, tube_kind, scaling, False)
     b = sp.n + 1 + sp.m
     p_sub = _take(p_batch, pad)
-    lb_u, ub_u = staged_bounds(p_sub, sp.n, sp.m, N)
+    # phase 2 clips to scenario 0's bounds, as the JAX package's does
+    # (shared bounds; they differ only for a per-scenario ROM or w_max)
+    lb_u, ub_u = staged_bounds(_take(p_batch, pad[:1] * 0), sp.n, sp.m, N)
     s1 = out1.sol
     sol2 = solve_tube_fast_single(
         sp, p_sub, s1.x.reshape(B, N + 1, b)[pad], lb_u, ub_u, cfg2,

@@ -5,7 +5,8 @@ problem description, the stage-form residuals, packing and bounds, the
 tube solve (``solve_tube_fast``, whose JAX twin is single-scenario and
 vmapped; here it takes the batch) and the receding-horizon closed loop.
 The variables of stage k are ``u_k = [z_k, w_k, v_k]``; a staged iterate is
-``(B, N+1, b)``.
+``(B, N+1, b)``. The ROM and the tube network may be shared or per scenario
+(``solver.trajopt``); every path here takes both.
 
 ``solve_tube_fast_single`` dispatches to the entry-form solver
 (``staged_scalar.solve_staged_scalar``, on the card through the
@@ -16,6 +17,7 @@ form.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import NamedTuple
 
 import torch
@@ -175,11 +177,20 @@ def _assemble(sp: StagedProblem, u, p: TrajOptParams, lam, mu, rho,
     grad[:, :, iw] += qw2[:, None] * w
 
     # ---- dynamics: per-stage linearization A_k, B_k ----------------------
-    def f_single(zk, vk):
-        return p.rom.f(zk[None], vk[None])[0]
+    zs, vs = z[:, :-1].reshape(B * N, n), v.reshape(B * N, m)
+    if isinstance(p.rom.dt, torch.Tensor):
+        # per-scenario dt: each stage's row carries its scenario's
+        def f_row(zk, vk, dtk):
+            return replace(p.rom, dt=dtk).f(zk[None], vk[None])[0]
 
-    A, Bk = torch.func.vmap(torch.func.jacfwd(f_single, argnums=(0, 1)))(
-        z[:, :-1].reshape(B * N, n), v.reshape(B * N, m))
+        A, Bk = torch.func.vmap(torch.func.jacfwd(f_row, argnums=(0, 1)))(
+            zs, vs, p.rom.dt.repeat_interleave(N))
+    else:
+        def f_single(zk, vk):
+            return p.rom.f(zk[None], vk[None])[0]
+
+        A, Bk = torch.func.vmap(torch.func.jacfwd(
+            f_single, argnums=(0, 1)))(zs, vs)
     A, Bk = A.reshape(B, N, n, n), Bk.reshape(B, N, n, m)
     lh = lam_dyn + gr3 * h_dyn                                  # (B, N, n)
     D[:, :-1, iz, iz] += rho4 * torch.einsum("bkij,bkil->bkjl", A, A)
@@ -270,16 +281,21 @@ def unpack_staged(u, n, m, N):
 
 
 def staged_bounds(p: TrajOptParams, n, m, N):
-    """Box bounds (B, N+1, b); stage N's padded v slot is pinned to 0."""
+    """Box bounds (B, N+1, b) from the ROM's (shared or per-scenario)
+    bounds; stage N's padded v slot is pinned to 0."""
     B = p.batch_size
     b = n + 1 + m
     lb = torch.zeros(B, N + 1, b, device=p.device)
     ub = torch.zeros(B, N + 1, b, device=p.device)
-    lb[:, :, :n] = p.rom.z_min
-    ub[:, :, :n] = p.rom.z_max
+
+    def stages(t):
+        return t[:, None, :] if t.ndim == 2 else t
+
+    lb[:, :, :n] = stages(p.rom.z_min)
+    ub[:, :, :n] = stages(p.rom.z_max)
     ub[:, :, n] = p.w_max[:, None]
-    lb[:, :-1, n + 1:] = p.rom.v_min
-    ub[:, :-1, n + 1:] = p.rom.v_max
+    lb[:, :-1, n + 1:] = stages(p.rom.v_min)
+    ub[:, :-1, n + 1:] = stages(p.rom.v_max)
     return lb, ub
 
 

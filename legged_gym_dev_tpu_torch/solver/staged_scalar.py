@@ -14,8 +14,11 @@ written for a whole scenario batch at once instead of one scenario under
 
 Zero entries are Python ``0.0`` and are skipped exactly as in the JAX
 package (``_is0/_mul/_add/_sub``), so the sparsity of the staged blocks is
-exploited the same way. The fixed schedule has no early exit and the loop
-makes no host synchronisation: per-scenario convergence and freezing are
+exploited the same way. A per-scenario ROM gives its ``dt``-valued Jacobian
+entries as ``(B, 1)`` columns where the shared ROM gives floats; both reach
+the KKT entries as ``(B, S)`` / ``(B, S-1)`` tensors of the same shapes.
+The fixed schedule has no early exit and the loop makes no host
+synchronisation: per-scenario convergence and freezing are
 ``torch.where`` masks.
 
 Linear solves (``ALConfig.linsolve``): "pallas" goes to the hand-written
@@ -224,6 +227,8 @@ def _bcast_N(x, N, like):
         return 0.0
     if isinstance(x, (int, float)):
         return torch.full((N,), float(x), dtype=like.dtype, device=like.device)
+    if x.shape[-1] != N:        # a per-scenario (B, 1) column
+        return x.expand(x.shape[:-1] + (N,))
     return x
 
 
@@ -269,18 +274,20 @@ def _assemble_e(sp, u_e, p, lam, mu, rho, grad_rho=None, nn_need_U=True):
     e0[0] = 1.0
 
     def pad_head(x):
-        """(B, N)-or-scalar stage-k<N term -> (B, S) with 0 at stage N."""
+        """(B, N), (B, 1) or scalar stage-k<N term -> (B, S) with 0 at
+        stage N."""
         if _is0(x):
             return 0.0
-        if isinstance(x, (int, float)):
+        if isinstance(x, (int, float)) or x.shape[-1] != N:
             return x * one_head
         return F.pad(x, (0, 1))
 
     def shift1(x):
-        """(B, N)-or-scalar stage-(k+1) term -> (B, S) with 0 at stage 0."""
+        """(B, N), (B, 1) or scalar stage-(k+1) term -> (B, S) with 0 at
+        stage 0."""
         if _is0(x):
             return 0.0
-        if isinstance(x, (int, float)):
+        if isinstance(x, (int, float)) or x.shape[-1] != N:
             return x * one_s1
         return F.pad(x, (1, 0))
 

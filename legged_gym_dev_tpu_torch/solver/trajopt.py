@@ -13,10 +13,12 @@ Decision vector layout (one row per scenario):
           w             (N+1, only tube problems) ]
 
 Where the JAX package vmaps over a pytree of per-scenario leaves, here every
-per-scenario field carries a leading batch axis ``B``. Two things are shared
-by the whole batch instead: the ROM (``rom``) and the tube network
-(``tube_params``, one ``MLP``), where the JAX package may hold one per
-scenario.
+per-scenario field carries a leading batch axis ``B``. The ROM (``rom``) and
+the tube network (``tube_params``, an ``MLP``) come in two forms: shared by
+the whole batch (a float ``dt``, ``(n,)`` bounds, one network; the fast
+path), or per scenario, as the JAX package's vmapped pytree holds them (a
+``(B,)`` ``dt`` and/or ``(B, n)`` bounds, ``(B, in, out)`` weights; see
+``core.rom`` and ``tube.models``).
 """
 from __future__ import annotations
 
@@ -72,7 +74,7 @@ class TrajOptParams:
     v_prev: torch.Tensor    # (B, H_rev, m) applied-input history
     z_ref: torch.Tensor     # (B, N+1, n) tracking reference (track_ref)
     v_ref: torch.Tensor     # (B, N, m)
-    tube_params: Any = None  # MLP shared by the batch, or None
+    tube_params: Any = None  # MLP, shared or per scenario, or None
 
     @classmethod
     def create(cls, rom, N, H_rev, Q, R, z0, zf, obs_c, obs_r, Qw=0.0,
@@ -83,12 +85,21 @@ class TrajOptParams:
         Each per-scenario input may be given once for the whole batch (the
         single-scenario shape) or per scenario (with a leading ``B`` axis).
         ``B`` is ``batch`` if given, else the leading axis of ``z0`` when it
-        is 2-D, else 1.
+        is 2-D, else the scenario count of a per-scenario ROM or tube
+        network, else 1. A per-scenario ROM or network must have ``B``
+        scenarios.
         """
         dev = resolve_device(device)
         n, m = rom.n, rom.m
+        sizes = {x.batch_size for x in (rom, tube_params)
+                 if x is not None and x.batch_size is not None}
         if batch is None:
-            batch = np.shape(z0)[0] if np.ndim(z0) == 2 else 1
+            batch = (np.shape(z0)[0] if np.ndim(z0) == 2
+                     else (sizes.pop() if len(sizes) == 1 else 1))
+        if sizes - {batch}:
+            raise ValueError(f"per-scenario ROM or tube network of "
+                             f"{sorted(sizes)} scenarios for a batch of "
+                             f"{batch}")
 
         def per_scenario(x, shape):
             x = np.asarray(x, np.float32)
@@ -172,13 +183,18 @@ def unpack_x(x, N, n, m, with_w):
 
 
 def make_bounds(p: TrajOptParams, N: int, with_w: bool):
-    """Box bounds (B, D) from the ROM's state and input limits and the
-    tube-width cap."""
+    """Box bounds (B, D) from the ROM's state and input limits (shared or
+    per scenario) and the tube-width cap."""
     B, rom = p.batch_size, p.rom
-    lb = [rom.z_min.repeat(N + 1), rom.v_min.repeat(N)]
-    ub = [rom.z_max.repeat(N + 1), rom.v_max.repeat(N)]
-    lb = torch.cat(lb).expand(B, -1)
-    ub = torch.cat(ub).expand(B, -1)
+
+    def rows(zb, vb):
+        if zb.ndim == vb.ndim == 1:
+            return torch.cat([zb.repeat(N + 1), vb.repeat(N)]).expand(B, -1)
+        return torch.cat([zb.expand(B, -1).repeat(1, N + 1),
+                          vb.expand(B, -1).repeat(1, N)], dim=-1)
+
+    lb = rows(rom.z_min, rom.v_min)
+    ub = rows(rom.z_max, rom.v_max)
     if with_w:
         lb = torch.cat([lb, torch.zeros(B, N + 1, device=p.device)], dim=-1)
         ub = torch.cat([ub, p.w_max[:, None].expand(B, N + 1)], dim=-1)
@@ -244,9 +260,12 @@ def build_nlp_fns(n: int, m: int, N: int, with_tube: bool,
 # ---------------------------------------------------------------------------
 
 def warm_start_interpolate(start, goal, N, dt, m=None):
-    """Straight line from ``start (B, n)`` to ``goal (B, n)``."""
+    """Straight line from ``start (B, n)`` to ``goal (B, n)``; ``dt`` a
+    float or ``(B,)``."""
     alpha = torch.linspace(0.0, 1.0, N + 1, device=start.device)[:, None]
     z_init = start[:, None, :] + alpha * (goal - start)[:, None, :]
+    if isinstance(dt, torch.Tensor):
+        dt = dt.reshape(-1, 1, 1)
     v_init = torch.diff(z_init, dim=1) / dt
     if m is not None and m != z_init.shape[-1]:
         # State-difference inputs only make sense when the input drives

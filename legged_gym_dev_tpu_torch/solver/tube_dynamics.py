@@ -79,7 +79,9 @@ def l2_rolling_tube(scaling: float, window: int, N: int) -> Callable:
 def nn_oneshot_tube() -> Callable:
     """One-shot NN tube: input ``[e (H_rev), z_0[2:], vec_F(v_total)]`` with
     ``v_total = [v_prev; v]`` flattened column-major (CasADi ``reshape``
-    semantics), exactly as the JAX package lays it out."""
+    semantics), exactly as the JAX package lays it out. ``params`` is a
+    shared ``MLP`` or a per-scenario one (its scenario axis the batch
+    axis of ``x``)."""
 
     def fn(z, v, w, e, v_prev, params):
         B = z.shape[0]

@@ -447,3 +447,82 @@ def test_flagship_entry_points_raise_without_card(monkeypatch):
         monkeypatch.delenv("E2E_CPU", raising=False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             module.main([])
+
+
+def test_scan_sees_the_mujoco_slice():
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for needed in ("legged_gym_dev_tpu_torch/sim/mjcf.py",
+                   "legged_gym_dev_tpu_torch/utils/video.py",
+                   "legged_gym_dev_tpu_torch/utils/live_viewer.py"):
+        assert needed in files
+        bad = [m for m in _imported_modules(ROOT / needed)
+               if m.split(".")[0] in FORBIDDEN]
+        assert not bad, (needed, bad)
+    assert ("legged_gym_dev_tpu_torch.sim.mjcf"
+            in _imported_modules(PACKAGE / "utils" / "video.py"))
+
+
+def test_mujoco_and_scenario_entry_points_raise_without_card(monkeypatch,
+                                                             tmp_path):
+    """The sim2sim evaluations, ``record_rollout_video`` and the builders
+    of per-scenario ROMs, networks and ``TrajOptParams``, called without
+    ``device``, raise on a machine with no card."""
+    from legged_gym_dev_tpu_torch.core.rom import SingleInt2D, make_rom
+    from legged_gym_dev_tpu_torch.envs.presets import make_rom_tracking_env
+    from legged_gym_dev_tpu_torch.evaluation import (
+        evaluate_sim2sim_hopper,
+        evaluate_sim2sim_hopper_reference,
+    )
+    from legged_gym_dev_tpu_torch.tube.models import MLP
+    from legged_gym_dev_tpu_torch.utils.video import record_rollout_video
+    from tests.torch_robot_cases import HOPPER_URDF
+
+    env = make_rom_tracking_env(num_envs=2, device="cpu")
+    rom = make_rom(*ROM_ARGS, device="cpu")
+    net = mlp_from_numpy([np.ones((3, 2), np.float32)],
+                         [np.zeros(2, np.float32)], device="cpu")
+    B = 3
+    case = gap_case(B, 4, 2, "l1")
+    _no_card(monkeypatch)
+    calls = [
+        lambda: evaluate_sim2sim_hopper(steps=2, urdf_path=HOPPER_URDF),
+        lambda: evaluate_sim2sim_hopper_reference(
+            steps=2, urdf_path=HOPPER_URDF, xml_path=str(tmp_path / "x")),
+        lambda: record_rollout_video(env, lambda o: o[:, :2],
+                                     torch.Generator(), 1,
+                                     str(tmp_path / "v.gif")),
+        lambda: make_rom("SingleInt2D", np.full(B, 0.1), [-1, -1], [1, 1],
+                         np.full((B, 2), -0.2), np.full((B, 2), 0.2)),
+        lambda: SingleInt2D.stack([rom] * B),
+        lambda: MLP.stack([net] * B),
+        lambda: mlp_from_numpy([np.ones((B, 3, 2), np.float32)],
+                               [np.zeros((B, 2), np.float32)]),
+        lambda: trajopt_params_from_numpy(
+            "SingleInt2D", np.full(B, 0.1, np.float32), *ROM_ARGS[2:], 4, 2,
+            np.eye(2), np.eye(2), case["z0"], case["zf"], case["obs_c"],
+            case["obs_r"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert SingleInt2D.stack([rom] * B, device="cpu").per_scenario
+
+
+# JAX modules whose port counterpart carries another name: the Pallas
+# kernels' wrappers and their CUDA kernels (ROADMAP.md §2).
+RENAMED = {"ops/pallas_block_tridiag.py": "ops/block_tridiag_kernels.py",
+           "ops/pallas_substep.py": "ops/substep_kernels.py"}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each module of the JAX package has its file in the port (under its
+    own path, or the kernel wrappers' names above); ROADMAP.md lists no
+    whole module as not to be ported."""
+    jax_pkg = ROOT / "legged_gym_dev_tpu"
+    missing = []
+    for path in sorted(jax_pkg.rglob("*.py")):
+        rel = path.relative_to(jax_pkg).as_posix()
+        if not (PACKAGE / RENAMED.get(rel, rel)).exists():
+            missing.append(rel)
+    assert not missing, missing
+    assert all((PACKAGE / v).exists() for v in RENAMED.values())
