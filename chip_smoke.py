@@ -1754,6 +1754,7 @@ ZOO = {  # ROM: (n, m); staged block b = n + 1 + m
     "ExtendedLateralUnicycle": (6, 3)}
 B_ZOO, N_CR, B_CR, B_GEN = 2048, 200, 1024, 1024
 H_CLI = 75
+H_CLI_NN = 40      # the NN-tube `cli mpc`: depth cut, 40 of 75 ticks
 
 
 def load_by_path(name):
@@ -2104,7 +2105,7 @@ def start_plan_cli(mlp, work):
         ("mpc", ["mpc", *H, "--out", str(work / "mpc.mat")]),
         ("mpc_generic", ["mpc", "--generic", *H]),
         ("plan_nn", ["plan", *nn]),
-        ("mpc_nn", ["mpc", *H, *nn]),
+        ("mpc_nn", ["mpc", "--H", str(H_CLI_NN), *nn]),
     ]
     running = []
     for name, argv in commands:
@@ -2225,13 +2226,14 @@ def plan_phase(dev, mlp=None):
     t0 = time.perf_counter()
     plan_goldens(dev)
     zoo = plan_zoo(dev)
-    plan_cr(dev)
-    plan_generic(dev)
-    plan_bucketed(dev, zoo)
-    # the CLI's processes run beside the coverage loop; their launches are
-    # their own processes' and are not counted here
+    # the CLI's processes run beside the rest of the phase (the zoo's rates
+    # are taken before they start); their launches are their own
+    # processes' and are not counted here
     running = start_plan_cli(mlp, work)
     try:
+        plan_cr(dev)
+        plan_generic(dev)
+        plan_bucketed(dev, zoo)
         plan_coverage(dev, mlp)
     except BaseException:
         kill_all(running)
@@ -3683,7 +3685,12 @@ def kernel_phase_b10(dev):
     rec = {}
     shapes = {k: btk.launch_shape(k, S, b, R=N)
               for k in ("bt_solve", "bt_factor", "bt_msolve")}
-    print(f"[kernels] b=10 launch shapes at S={S}, R={N}: "
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for k, B in (("bt_solve", B_ZOO), ("bt_factor", B_NN)):
+        # waves of blocks at the zoo's batch over the card's resident ones
+        blocks = -(-B // shapes[k]["teams"])
+        shapes[k]["waves"] = blocks / (shapes[k]["blocks_per_sm"] * sms)
+    print(f"[kernels] b=10 launch shapes at S={S}, R={N} ({sms} SMs): "
           + json.dumps(shapes))
     b8 = kernels_alone_ms(8, dev)
     print(f"[kernels] b=8 alone at the same shapes: {json.dumps(b8)}")
@@ -3826,8 +3833,9 @@ def run_phases(phases, running):
         for line in report.splitlines():
             print(f"[build] {line.strip()}")
         for name, info in ptxas_summary(report).items():
-            m = re.search(r"(bt_solve_kernel|bt_factor_kernel|bt_msolve_kernel"
-                          r"|substep_kernel)ILi(\d+)E", name)
+            m = re.search(r"(bt_solve_kernel(?:_wide)?|bt_factor_kernel"
+                          r"(?:_wide)?|bt_msolve_kernel|substep_kernel)"
+                          r"ILi(\d+)E", name)
             if m:
                 print(f"[ptxas] {m.group(1)}<{m.group(2)}>: "
                       + json.dumps(info))

@@ -42,6 +42,7 @@ from . import _build
 # block sizes the CUDA source instantiates: the ROM zoo's staged layouts
 # b = n + 1 + m (5, 6, 7, 8, 10), and 3, 4
 SUPPORTED_B = (3, 4, 5, 6, 7, 8, 10)
+TEAM = 8        # kTeam: above it bt_solve and bt_factor stream the stages
 MAX_B = 10                         # kMaxB of the CUDA source
 MAX_FACTOR_ENTRIES = 55 + 100     # kMaxFactorEntries: bt_factor's table
 MAX_ENTRIES = MAX_FACTOR_ENTRIES + MAX_B   # kMaxEntries: bt_solve's table
@@ -220,6 +221,16 @@ def record_layout(b: int):
     return nlp, bbp, bp, nlp + bbp + bp
 
 
+def scratch_record(b: int) -> int:
+    """Floats a stage and scenario of ``bt_solve``'s scratch above b =
+    ``TEAM`` (``Ring<b>::SREC``): the factor, 1 / c_jj and y, each padded
+    to whole float4s; 0 at and below it (no scratch)."""
+    if b <= TEAM:
+        return 0
+    nlp, _, bp, _ = record_layout(b)
+    return nlp + 2 * bp
+
+
 def factor_records_plain(D_full, L_full, b: int, B: int, S: int):
     """``bt_factor``'s output from the plain version: (B, S, REC) stage
     records, zeros in the padding and in the last stage's L."""
@@ -243,15 +254,17 @@ def factor_records_plain(D_full, L_full, b: int, B: int, S: int):
 # ---------------------------------------------------------------------------
 
 class SolveArgs(ctypes.Structure):
-    """``BtSolveArgs`` of csrc/block_tridiag.cu: bt_solve's entry table
-    (D's lower triangle, L row-major, rhs) and the output view."""
+    """``BtSolveCall`` of csrc/block_tridiag.cu: bt_solve's entry table
+    (``BtSolveArgs``: D's lower triangle, L row-major, rhs), the output
+    view, then the scratch records above b = ``TEAM`` (null below)."""
     _fields_ = [("ptr", ctypes.c_void_p * MAX_ENTRIES),
                 ("sb", ctypes.c_int64 * MAX_ENTRIES),
                 ("ss", ctypes.c_int64 * MAX_ENTRIES),
                 ("out", ctypes.c_void_p),
                 ("out_se", ctypes.c_int64),
                 ("out_sb", ctypes.c_int64),
-                ("out_ss", ctypes.c_int64)]
+                ("out_ss", ctypes.c_int64),
+                ("scratch", ctypes.c_void_p)]
 
 
 class FactorArgs(ctypes.Structure):
@@ -323,12 +336,19 @@ def _array_entries(A, pairs):
             for ij in pairs]
 
 
-def _solve_args(table, out: torch.Tensor, out_strides) -> SolveArgs:
+def _solve_args(table, out: torch.Tensor, out_strides, b: int, B: int,
+                S: int) -> SolveArgs:
+    """The launch arguments; above b = ``TEAM`` with the (B, S,
+    ``scratch_record(b)``) scratch, which lives as long as they do."""
     args = SolveArgs()
     n = len(table)
     args.ptr[:n], args.sb[:n], args.ss[:n] = zip(*table)
     args.out = out.data_ptr()
     args.out_se, args.out_sb, args.out_ss = out_strides
+    if b > TEAM:
+        args.scratch_tensor = torch.empty((B, S, scratch_record(b)),
+                                          dtype=_F32, device=out.device)
+        args.scratch = args.scratch_tensor.data_ptr()
     return args
 
 
@@ -344,7 +364,9 @@ def launch_shape(kernel: str, S: int, b: int, R: int = 1) -> dict:
     """The launch shape the CUDA source picks at these shapes: scenarios
     a block, threads a block and shared memory a block in bytes (-1 if
     they do not fit on the current card), and bt_solve's and bt_factor's
-    entry stride ES or bt_msolve's columns a block RC."""
+    entry stride ES (0 above b = ``TEAM``: the stages stream) with the
+    kernel's blocks resident on a multiprocessor of the current card, or
+    bt_msolve's columns a block RC."""
     lib = _build.load(SOURCE)
     x, y = ctypes.c_int(0), ctypes.c_int(0)
     ref = ctypes.POINTER(ctypes.c_int)
@@ -355,13 +377,14 @@ def launch_shape(kernel: str, S: int, b: int, R: int = 1) -> dict:
         nbytes = fn(S, R, b, ctypes.byref(x), ctypes.byref(y))
         return dict(teams=y.value, threads=y.value * x.value, RC=x.value,
                     smem_bytes=nbytes)
+    threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
     fn = lib.bt_team_shape
-    fn.argtypes = [ctypes.c_int] * 3 + [ref, ref]
+    fn.argtypes = [ctypes.c_int] * 3 + [ref] * 4
     fn.restype = ctypes.c_int
     nbytes = fn(S, b, int(kernel == "bt_factor"), ctypes.byref(x),
-                ctypes.byref(y))
-    return dict(teams=x.value, threads=8 * x.value, ES=y.value,
-                smem_bytes=nbytes)
+                ctypes.byref(y), ctypes.byref(threads), ctypes.byref(blocks))
+    return dict(teams=x.value, threads=threads.value, ES=y.value,
+                smem_bytes=nbytes, blocks_per_sm=blocks.value)
 
 
 def _launch_solve(args: SolveArgs, S: int, B: int, b: int, device):
@@ -406,7 +429,7 @@ def prepare_solve_entries(D_full, L_full, rhs, b: int):
     B, S = like.shape
     table = solve_entry_table(D_full, L_full, rhs, b, B, S, like.device)
     x = torch.empty((b, B, S), dtype=torch.float32, device=like.device)
-    return _solve_args(table, x, (B * S, S, 1)), x
+    return _solve_args(table, x, (B * S, S, 1), b, B, S), x
 
 
 def block_tridiag_solve_entries(D_full, L_full, rhs, b: int):
@@ -442,7 +465,8 @@ def block_tridiag_solve(D, L, rhs):
                                   for j in range(b)])
              + _array_entries(rhs, [(i,) for i in range(b)]))
     x = torch.empty((B, S, b), dtype=torch.float32, device=rhs.device)
-    _launch_solve(_solve_args(table, x, (1, S * b, b)), S, B, b, rhs.device)
+    _launch_solve(_solve_args(table, x, (1, S * b, b), b, B, S), S, B, b,
+                  rhs.device)
     return x
 
 

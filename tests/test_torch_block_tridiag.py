@@ -29,8 +29,10 @@ from tests.torch_port_cases import one_torch_thread  # noqa: F401
 ATOL = 3e-5
 SHAPES = [(8, 12, 5), (16, 51, 5), (4, 6, 3)]
 # the entry form (the solver's) also at every other staged block size of
-# the ROM zoo; the array form is the same kernel behind another table
-ZOO_SHAPES = [(4, 6, 6), (4, 6, 7), (4, 6, 8), (4, 7, 10)]
+# the ROM zoo, and at b=10 at the zoo's stage count; the array form is the
+# same kernel behind another table
+ZOO_SHAPES = [(4, 6, 6), (4, 6, 7), (4, 6, 8), (4, 7, 10),
+              (2, 51, 10)]
 
 
 @pytest.mark.parametrize("B,S,b", SHAPES + ZOO_SHAPES)

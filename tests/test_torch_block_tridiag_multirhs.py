@@ -22,7 +22,7 @@ ATOL = 3e-5
 @pytest.mark.parametrize("B,S,b,R", [(8, 12, 5, 7), (16, 51, 5, 11),
                                      (4, 6, 3, 5), (4, 6, 6, 3),
                                      (4, 6, 7, 5), (4, 6, 8, 3),
-                                     (4, 7, 10, 5)])
+                                     (4, 7, 10, 5), (2, 51, 10, 3)])
 def test_multirhs_plain_matches_pallas(B, S, b, R):
     D, L, rhs = make_systems(B, S, b, R, seed=B + 100)
     Dj, Lj = entry_lists(D, L, jnp.asarray)

@@ -172,6 +172,28 @@ def test_solve_args_pack_the_table_and_output_view():
         x.data_ptr(), 8, 4, 1)
 
 
+@pytest.mark.parametrize("b", [5, 10])
+def test_solve_args_carry_the_scratch_above_the_team(b):
+    """``BtSolveCall``'s layout: the table, then the scratch pointer. Up to
+    b = TEAM it is null; above, it points at a (B, S, 80) float32 tensor the
+    arguments keep alive, 16-byte aligned: the factor (55 padded to 56),
+    1 / c_jj and y (10 each, padded to 12), as the streamed kernels'
+    ``Ring<b>::SREC``."""
+    B, S = 3, 6
+    (Df, Lf, r), _ = special_entries(B, S, b, seed=b)
+    args, x = btk.prepare_solve_entries(Df, Lf, r, b)
+    assert btk.SolveArgs.scratch.offset == 3 * 8 * btk.MAX_ENTRIES + 32
+    assert btk.scratch_record(b) == (0 if b <= btk.TEAM else 80)
+    if b <= btk.TEAM:
+        assert args.scratch is None
+        return
+    scratch = args.scratch_tensor
+    assert scratch.shape == (B, S, 80) and scratch.dtype == torch.float32
+    assert args.scratch == scratch.data_ptr() and args.scratch % 16 == 0
+    nlp, _, bp, _ = btk.record_layout(b)
+    assert (nlp, bp) == (56, 12)
+
+
 def test_entry_views_reject_what_the_kernel_cannot_read():
     shape = torch.Size((2, 3))
     with pytest.raises(TypeError):

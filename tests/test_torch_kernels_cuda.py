@@ -205,7 +205,11 @@ def test_entry_table_cases_on_card(card, R):
     """Structural zeros (null pointers), a tensor shared between D[1][0]
     and D[0][1], stride-0 entries, and the array form with non-contiguous
     strides: the kernels against the plain version of the dense system."""
-    B, S, b = 300, 51, 5
+    entry_table_cases(card, 5, R)
+
+
+def entry_table_cases(card, b, R):
+    B, S = 300, 51
     (Df, Lf, r), (D, L, rhs) = special_entries(B, S, b, R, seed=R,
                                                device=card)
     Dd, Ld, rd = (torch.as_tensor(a, device=card) for a in (D, L, rhs))
@@ -223,6 +227,87 @@ def test_entry_table_cases_on_card(card, R):
     else:
         x = torch.stack(btk.block_tridiag_multirhs_entries(Df, Lf, r, b), 2)
         assert rel(x, ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 50])
+def test_entry_table_cases_b10_on_card(card, R):
+    """The entry-table cases at b=10, where the streamed kernels copy each
+    entry 4 bytes at a time: null pointers, a shared tensor, stride-0
+    entries and the array form's strides."""
+    entry_table_cases(card, 10, R)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 1000, 2047])
+def test_b10_ragged_batches_on_card(card, B):
+    """b=10 at S=51 on batches that leave the last block's second team
+    without a scenario (1, 2047) or fill it (1000): bt_solve through both
+    wrappers, bt_factor's records, bt_factor + bt_msolve."""
+    test_bt_solve_matches_plain_on_card(card, B, 51, 10)
+    test_bt_factor_records_match_plain_on_card(card, 10, B, 51)
+    test_bt_factor_msolve_match_plain_on_card(card, B, 51, 10, 50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1000, 2048])
+def test_b10_long_horizon_on_card(card, B):
+    """b=10 at S=201, where the rows of one scenario no longer fit the
+    team kernels' layout: bt_solve, bt_factor's records, bt_factor +
+    bt_msolve."""
+    test_bt_solve_matches_plain_on_card(card, B, 201, 10)
+    test_bt_factor_records_match_plain_on_card(card, 10, B, 201)
+    test_bt_factor_msolve_match_plain_on_card(card, B, 201, 10, 7)
+
+
+@pytest.mark.cuda
+def test_b10_nan_pivot_stays_nan_on_card(card):
+    """A NaN on one scenario's diagonal at stage 20 stays NaN: that
+    scenario's x and its records from stage 20 on are NaN as the plain
+    version's are, its teammate in the warp and every other scenario stay
+    finite and within 1e-4 of the plain version."""
+    B, S, b = 64, 51, 10
+    D, L, rhs = make_systems(B, S, b, R=3, seed=5)
+    D[5, 20, 3, 3] = np.nan
+    Dt, Lt = entry_lists(D, L, lambda a: torch.as_tensor(a, device=card))
+    r = [torch.as_tensor(rhs[:, :, i, 0], device=card) for i in range(b)]
+    x = torch.stack(btk.block_tridiag_solve_entries(Dt, Lt, r, b))
+    x_pl = torch.stack(btk.block_tridiag_solve_entries_plain(Dt, Lt, r, b))
+    cols = [torch.as_tensor(rhs[:, :, i, :], device=card) for i in range(b)]
+    fargs, rec, _, _ = btk.prepare_multirhs_entries(Dt, Lt, cols, b)
+    btk._launch_factor(fargs, S, B, b, card)
+    rec_pl = btk.factor_records_plain(Dt, Lt, b, B, S)
+    torch.cuda.synchronize()
+    nl = b * (b + 1) // 2
+    for got, ref in ((x, x_pl), (rec[..., :nl], rec_pl[..., :nl])):
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert bool(torch.isnan(x[:, 5]).all())
+    assert bool(torch.isnan(rec[5, 20:, :nl]).any(-1).all())
+    ok = torch.ones(B, dtype=torch.bool, device=card)
+    ok[5] = False
+    assert bool(torch.isfinite(x[:, ok]).all())
+    assert rel(x[:, ok], x_pl[:, ok]) <= 1e-4
+    assert rel(rec[ok], rec_pl[ok]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_b10_launch_shape_on_card(card):
+    """At b=10 a scenario takes the same shared memory at S=51 as at
+    S=201 (the stages stream), a team is 16 lanes, and the blocks the card
+    keeps resident hold B=2048 scenarios in one wave; the team kernels'
+    shape says 8 lanes a scenario."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for kernel in ("bt_solve", "bt_factor"):
+        short, long_ = (btk.launch_shape(kernel, S, 10) for S in (51, 201))
+        for sh in (short, long_):
+            assert sh["smem_bytes"] > 0 and sh["threads"] == 16 * sh["teams"]
+        assert (short["smem_bytes"] / short["teams"]
+                == long_["smem_bytes"] / long_["teams"])
+        blocks = -(-2048 // short["teams"])
+        assert blocks <= short["blocks_per_sm"] * sms, (short, sms)
+        team = btk.launch_shape(kernel, 51, 5)
+        assert team["threads"] == 8 * team["teams"]
+        assert team["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda
