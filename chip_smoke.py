@@ -144,17 +144,23 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    0.98, co-feasible plans within 2e-3 on >= 90%);
 15. mesh phase (main path of the mesh slice, on a mesh of 4 shards of
    the one card, ``make_mesh(4, devices=[card] * 4)``, and over every card
-   where there are several): ``[mesh substep]`` K3's sharded route
-   (``substep_sharded``) on the quadruped at B=4096 with per-env DR rows
-   against its plain version shard by shard (max relative error <=
-   TOL_REL) and one unsharded K3 launch (<= 1e-6), exactly one launch per
-   shard, each output on its shard's device; its wrapper time beside the
-   unsharded one, the plain version's and K3's bound; ``[mesh train]`` ``cli train --task anymal_c_velocity``
+   where there are several): ``[mesh substep]`` K3s, the sharded route
+   (``substep_sharded``, the shard kernel ``substep_shard_kernel`` on each
+   shard), on the quadruped at B=4096 with per-env DR rows against its
+   plain version shard by shard (max relative error <= TOL_REL) and one
+   unsharded K3 launch (<= 1e-6), exactly one shard-kernel launch per
+   shard and none of K3, each output on its shard's device; its wrapper
+   and device times beside the unsharded one, the plain version's and
+   K3's bound; one shard's batch (B=1024) and the whole batch through K3
+   and the shard kernel alone, equal bit for bit, timed in turns (K3,
+   shard, shard, K3) behind a sleep; the shard kernel's launch shape
+   (envs and blocks an SM, waves, registers); ``[mesh train]`` ``cli train --task anymal_c_velocity``
    (``configs/rl/default.yaml``, the test quadruped, B=4096, 2
    iterations) unsharded, with ``--dp-devices 1`` (bit for bit the
    unsharded run) and ``--dp-devices <cards>`` where there are several,
-   then ``OnPolicyRunner(mesh=<4 shards>)``: learning env-steps/s, K3
-   launches exactly 4 x 24 x 4 x 2, one per shard and substep, replicas
+   then ``OnPolicyRunner(mesh=<4 shards>)``: learning env-steps/s, shard
+   kernel launches exactly 4 x 24 x 4 x 2, one per shard and substep
+   (``--dp-devices 1``: 24 x 4 x 2), and none of K3, replicas
    bit-identical after every update, finite metrics; ``[mesh
    curriculum]`` Cassie's command curriculum, one sharded step against
    one unsharded step (equal ranges on every shard); ``[mesh solve]`` l1
@@ -203,9 +209,8 @@ Runs on one CUDA card (an H100 for the recorded numbers):
 19. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
    joint count on rows of their own, the instances no robot runs measured
    on their chains in the substep phase; ``bt_solve``'s row counts the
-   other block sizes' launches; ``substep_sharded``, K3 launched shard by
-   shard, a row of its own with the mesh runs' launches, which the
-   ``substep`` row does not count again), then, last, ``{"ok": true,
+   other block sizes' launches; ``substep_sharded``, the shard kernel, a
+   row of its own with the mesh runs' launches), then, last, ``{"ok": true,
    "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -255,6 +260,7 @@ REPLACES = {
     "substep_sharded": "legged_gym_dev_tpu/ops/pallas_substep.py:257",
 }
 TOL_REL = 1e-4   # kernel vs plain version: max |diff| / max |plain|
+PTXAS = {}       # nvcc's report per kernel instance of this run's builds
 B_RL = 4096      # envs of the RL rollout and of the substep check
 ROOT = Path(__file__).resolve().parent
 TRAIN_ITERS = {"train": 3, "train_rnn": 1}
@@ -2692,14 +2698,19 @@ def mesh_of(dev, n=MESH_SHARDS):
 
 
 def mesh_substep(dev):
-    """K3's sharded route (``substep_sharded``) on the 4-shard mesh of the
+    """K3s, the sharded route (``substep_sharded``: the shard kernel
+    ``substep_shard_kernel`` on each shard), on the 4-shard mesh of the
     card against its plain version shard by shard on the same inputs (max
     relative error <= TOL_REL) and against one unsharded K3 launch (<=
-    1e-6): the ANYmal-C-topology quadruped (nj=12) at B=4096 with per-env
-    DR rows from a seed (base payload mass, friction, contact stiffness
-    and damping); one launch per shard, each output on its shard's
-    device; wrapper times sharded and unsharded, the plain version's, K3's
-    bound at the same work."""
+    1e-6; the two kernels work env by env in the same order, so it is 0):
+    the ANYmal-C-topology quadruped (nj=12) at B=4096 with per-env DR rows
+    from a seed (base payload mass, friction, contact stiffness and
+    damping); one launch of the shard kernel per shard and none of K3,
+    each output on its shard's device; wrapper times sharded and
+    unsharded, the call's device time, the plain version's, K3's bound at
+    the same work. Then ``shard_turns`` (one shard's batch and the whole
+    batch through both kernels alone, in turns) and the shard kernel's
+    launch shape."""
     import torch
 
     from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
@@ -2720,9 +2731,10 @@ def mesh_substep(dev):
     sk.reset_launches()
     out = sk.substep_sharded(sim, st_sh, tau_sh, mesh, "dp")
     torch.cuda.synchronize()
-    n_k3 = sk.launches()["substep"]
-    check(n_k3 == MESH_SHARDS,
-          f"[mesh substep] K3 launches {n_k3} != {MESH_SHARDS}")
+    n = sk.launches()
+    check(n == {"substep": 0, "substep_sharded": MESH_SHARDS},
+          f"[mesh substep] launches {n}: want {MESH_SHARDS} of the shard "
+          "kernel and none of K3")
     check([s.base_pos.device for s in out] == list(mesh.devices.flat),
           "[mesh substep] an output off its shard's device")
     shard_sims = sim.shard(mesh)
@@ -2748,7 +2760,18 @@ def mesh_substep(dev):
     p_ms = time_ms(lambda: [sk.substep_plain(s, a, b) for s, a, b in
                             zip(shard_sims, st_sh, tau_sh)], 3, warmup=1)
     bms, by, nbytes, ops = k3_bound("quadruped", sim, st, tau, dev)
-    rec = dict(max_abs_err=max(e[0] for e in errs_.values()),
+    turns = shard_turns({B_RL // MESH_SHARDS: (shard_sims[0], st_sh[0],
+                                               tau_sh[0]),
+                         B_RL: (sim, st, tau)}, dev)
+    shape = sk.shard_launch_shape(sim, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape.update(
+        sms=sms, ptxas=PTXAS.get("substep_shard_kernel<12>"),
+        waves={B: -(-B // shape["envs"]) / (shape["blocks_per_sm"] * sms)
+               for B in (B_RL // MESH_SHARDS, B_RL)})
+    print("[mesh substep] shape " + json.dumps(shape))
+    rec = dict(kernel="substep_shard_kernel<12>",
+               max_abs_err=max(e[0] for e in errs_.values()),
                max_rel_err=max(e[1] for e in errs_.values()),
                max_abs_err_vs_unsharded_k3=max(e[0] for e in
                                                errs_k3.values()),
@@ -2757,9 +2780,54 @@ def mesh_substep(dev):
                device_ms=dev_ms, device_ms_shown=fmt_ms(dev_ms, *dev_q),
                unsharded_ms=ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
                library_ms=None, shards=MESH_SHARDS, shape=[B_RL, 12],
-               bytes=nbytes, ops=ops)
+               bytes=nbytes, ops=ops, in_turns=turns, launch_shape=shape)
     print("[mesh substep] " + json.dumps(rec))
     return rec
+
+
+def shard_turns(cases, dev):
+    """K3 and the shard kernel alone (their bound C functions, counting no
+    launch) on each {B: (sim, state, tau)}: outputs equal bit for bit, then
+    the device time a launch of each, 20 launches queued behind a sleep,
+    in turns (K3, shard, shard, K3). Returns {B: [[kernel, ms], ...]}."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+
+    out = {}
+    for B, (sim, st, tau) in cases.items():
+        nj, nv = sim.model.nj, sim.model.nv
+        nc = len(sim.model.contact_body)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        params, topo = sk._model_tensors(sim, dev)
+        stopo, ncol, nsteps = sk._shard_topology(sim, dev)
+        calls, outs = {}, {}
+        for name, fn, extra in (
+                ("K3", sk.kernel(nj).function(), (topo, ())),
+                ("shard", sk.shard_kernel(nj).function(),
+                 (stopo, (ncol, nsteps)))):
+            o = [torch.empty((B, n), device=dev) for n in (3, 4, nj, nv)]
+            args, views = sk.substep_args(sim, st, tau, o)
+            raw = (params.data_ptr(), extra[0].data_ptr(),
+                   ctypes.addressof(args), nj, nc, B, *extra[1], stream)
+
+            def call(fn=fn, raw=raw, keep=(args, views)):
+                check(fn(*raw) == 0, "[mesh substep] a launch failed")
+
+            calls[name], outs[name] = call, o
+            call()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(outs["K3"],
+                                                    outs["shard"])),
+              f"[mesh substep] B={B}: the shard kernel differs from K3")
+        turns = []
+        for name in ("K3", "shard", "shard", "K3"):
+            ms, *q = device_ms(calls[name])
+            turns.append([name, ms, fmt_ms(ms, *q)])
+        out[B] = turns
+        print(f"[mesh substep] B={B} nj={nj} in turns (device ms a launch): "
+              + ", ".join(f"{n} {shown}" for n, _, shown in turns))
+    return out
 
 
 def mesh_learn_runner(args_extra, cfg_path, work, iters, cli):
@@ -2774,7 +2842,8 @@ def mesh_learn_runner(args_extra, cfg_path, work, iters, cli):
 
 def mesh_learn(runner, iters, tag):
     """``iters`` learn iterations one at a time (the replicas checked equal
-    after each update); (history, wall s, K3 launches)."""
+    after each update); (history, wall s, launches of K3 and of the shard
+    kernel)."""
     import torch
 
     from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
@@ -2795,7 +2864,7 @@ def mesh_learn(runner, iters, tag):
     for h in hist:
         for k in ("mean_reward", "loss", "policy_loss", "value_loss", "kl"):
             check(bool(np.isfinite(h[k])), f"[mesh train] {tag}: {k}")
-    return hist, wall, sk.launches()["substep"]
+    return hist, wall, sk.launches()
 
 
 def mesh_train(dev, work):
@@ -2804,10 +2873,10 @@ def mesh_train(dev, work):
     each: unsharded, with ``--dp-devices 1`` (a 1-device mesh: bit for bit
     the unsharded run) and, where there are several cards, with
     ``--dp-devices <cards>``; then ``OnPolicyRunner(mesh=<4 shards of the
-    card>)`` on the same config: K3 launches exactly 4 x 24 x 4 x 2 (one
-    per shard and substep), replicas bit-identical after every update.
-    Returns the record and the K3 launches of the unsharded run and of
-    the sharded runs."""
+    card>)`` on the same config: shard kernel launches exactly 4 x 24 x 4
+    x 2 (one per shard and substep) and none of K3, replicas bit-identical
+    after every update. Returns the record, K3's launches in the unsharded
+    run and the shard kernel's in the sharded runs."""
     import torch
 
     from legged_gym_dev_tpu_torch import cli
@@ -2831,13 +2900,15 @@ def mesh_train(dev, work):
         check(name == "unsharded" or all(
             d.type == "cuda" for d in runner.mesh.devices.flat),
             f"[mesh train] {name}: a shard off the card")
-        hist, wall, k3_n = mesh_learn(runner, iters, name)
+        hist, wall, n_k = mesh_learn(runner, iters, name)
         want = iters * 24 * 4 * n
-        check(k3_n == want, f"[mesh train] {name}: K3 {k3_n} != {want}")
+        key = "substep" if name == "unsharded" else "substep_sharded"
+        check(n_k == {"substep": 0, "substep_sharded": 0, key: want},
+              f"[mesh train] {name}: launches {n_k}, want {want} {key}")
         if name == "unsharded":
-            k3_u = k3_n
+            k3_u = want
         else:
-            k3 += k3_n
+            k3 += want
         runs[name] = hist
         out[f"{name}_env_steps_per_s"] = steps / wall
         out[f"{name}_metrics"] = [{k: h[k] for k in keys} for h in hist]
@@ -2851,9 +2922,11 @@ def mesh_train(dev, work):
         runner.model.activation, runner.model.init_noise_std,
         generator=torch.Generator().manual_seed(0)), cfg=runner.cfg,
         mesh=mesh_of(dev))
-    hist, wall, k3_4 = mesh_learn(sharded, iters, "4 shards")
-    want = MESH_SHARDS * 24 * 4 * iters
-    check(k3_4 == want, f"[mesh train] 4 shards: K3 {k3_4} != {want}")
+    hist, wall, n_k = mesh_learn(sharded, iters, "4 shards")
+    k3_4 = MESH_SHARDS * 24 * 4 * iters
+    check(n_k == {"substep": 0, "substep_sharded": k3_4},
+          f"[mesh train] 4 shards: launches {n_k}, want {k3_4} "
+          "substep_sharded")
     k3 += k3_4
     out.update(mesh4_env_steps_per_s=steps / wall,
                mesh4_s_per_iteration=wall / iters,
@@ -3131,8 +3204,8 @@ def mesh_phase(dev):
     _, k1_solve = mesh_solve(dev)
     _, k1_loop = mesh_loop(dev)
     mesh_collect(dev)
-    # K3 counts where it launches: the sharded runs' launches are
-    # substep_sharded's, the unsharded run's the substep row's
+    # each kernel counts where it launches: the sharded runs' launches
+    # are the shard kernel's (substep_sharded), the unsharded run's K3's
     launches = {"substep": k3_u, "substep_sharded": k3,
                 "bt_solve": k1_solve + k1_loop}
     print(f"[launches] mesh path: {json.dumps(launches)} in "
@@ -3834,9 +3907,10 @@ def run_phases(phases, running):
             print(f"[build] {line.strip()}")
         for name, info in ptxas_summary(report).items():
             m = re.search(r"(bt_solve_kernel(?:_wide)?|bt_factor_kernel"
-                          r"(?:_wide)?|bt_msolve_kernel|substep_kernel)"
-                          r"ILi(\d+)E", name)
+                          r"(?:_wide)?|bt_msolve_kernel|substep_kernel"
+                          r"|substep_shard_kernel)ILi(\d+)E", name)
             if m:
+                PTXAS[f"{m.group(1)}<{m.group(2)}>"] = info
                 print(f"[ptxas] {m.group(1)}<{m.group(2)}>: "
                       + json.dumps(info))
     card = subprocess.run(

@@ -26,9 +26,15 @@ velocity. It writes ``base_pos``, ``base_quat``, ``q`` and ``v`` into four
 contiguous (B, n) tensors. ``dr_rows`` is the TPU kernel's row layout of
 the same DR values, which the tests hold the table against.
 
-``substep_sharded`` is the counterpart of ``pallas_substep_sharded``: K3
-under a device mesh, one launch per shard on its device, on that shard's
-envs and its rows of every per-env DR field.
+``substep_sharded`` is the counterpart of ``pallas_substep_sharded``
+(K3s): the substep under a device mesh, one launch per shard on its
+device, on that shard's envs and its rows of every per-env DR field. On a
+CUDA shard it launches ``substep_shard`` of the same library
+(``substep_shard_kernel``: a warp per env, designed for a shard's batch),
+whose outputs equal K3's bit for bit; its schedules are
+``pack_shard_topology``'s. Launches are counted per kernel where each
+launches: ``launches()`` gives K3's as ``"substep"`` and the shard
+kernel's as ``"substep_sharded"``.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ MAX_NJ = 24    # joints: the ancestor mask is exact in a float up to 24 bits
 MAX_NC = 32    # contact spheres the kernel's model struct holds
 
 _KERNELS: dict = {}
+_SHARD_KERNELS: dict = {}
 
 
 def kernel(nj: int) -> _build.Kernel:
@@ -59,6 +66,16 @@ def kernel(nj: int) -> _build.Kernel:
         _KERNELS[nj] = _build.Kernel(SOURCE, "substep", n_ptr=3, n_int=3,
                                      defines=(f"SUBSTEP_NJ={nj}",))
     return _KERNELS[nj]
+
+
+def shard_kernel(nj: int) -> _build.Kernel:
+    """The shard kernel's (K3s) instance for ``nj`` joints, in the library
+    of ``kernel(nj)``; raises outside 1..MAX_NJ."""
+    defines = kernel(nj).defines
+    if nj not in _SHARD_KERNELS:
+        _SHARD_KERNELS[nj] = _build.Kernel(SOURCE, "substep_shard", n_ptr=3,
+                                           n_int=5, defines=defines)
+    return _SHARD_KERNELS[nj]
 
 
 def build(njs) -> dict:
@@ -75,16 +92,20 @@ def build(njs) -> dict:
 
 
 def reset_launches() -> None:
-    for k in _KERNELS.values():
+    for k in (*_KERNELS.values(), *_SHARD_KERNELS.values()):
         k.launches = 0
 
 
 def launches() -> dict:
-    return {"substep": sum(k.launches for k in _KERNELS.values())}
+    """Launches since the last reset: K3's (``substep``) and the shard
+    kernel's (``substep_sharded``), over every joint count."""
+    return {"substep": sum(k.launches for k in _KERNELS.values()),
+            "substep_sharded": sum(k.launches
+                                   for k in _SHARD_KERNELS.values())}
 
 
 def launches_by_nj() -> dict:
-    """Launches per joint count since the last reset: {nj: n}."""
+    """K3's launches per joint count since the last reset: {nj: n}."""
     return {nj: k.launches for nj, k in sorted(_KERNELS.items())
             if k.launches}
 
@@ -214,10 +235,43 @@ def pack_topology(model, team: int) -> np.ndarray:
     2), with S = ``ent_shift(nj)``."""
     nj, nb = model.nj, model.nb
     na, S = nj + 3, ent_shift(nj)
+    sched = _fk_schedule(model, team)
+    prism, rotational = _prismatic(model)
+    cols = _body_columns(model)
+    ents = []
+    for c in cols:
+        ents.append(
+            [_lo(c[a], c[b]) | a << S | b << (S + 5)
+             | int(rotational(c[a]) and rotational(c[b])) << (S + 10)
+             for a in range(len(c)) for b in range(a + 1)]
+            + [_lo(c[a], i) | a << S | i << (S + 5) | 2 << (S + 10)
+               for a in range(len(c)) for i in range(3)])
+    return np.concatenate([
+        np.asarray([len(js) for js in sched], np.int32), _rows(sched, nj),
+        np.asarray([len(c) for c in cols], np.int32), _rows(cols, na),
+        np.asarray([prism], np.int32),
+        np.asarray([len(e) for e in ents], np.int32),
+        _rows(ents, na * (na + 1) // 2 + 3 * na)])
+
+
+def _lo(i: int, j: int) -> int:
+    return i * (i + 1) // 2 + j
+
+
+def _rows(lists, width) -> np.ndarray:
+    out = np.zeros((len(lists), width), np.int32)
+    for r, x in enumerate(lists):
+        out[r, :len(x)] = x
+    return out.ravel()
+
+
+def _fk_schedule(model, team: int) -> list:
+    """Each lane's FK joints: whole subtrees of the base dealt to the lanes
+    in turn, joints in index order."""
     parent = [int(p) for p in model.parent]
     branch, roots = [], 0
     sched = [[] for _ in range(team)]
-    for j in range(nj):
+    for j in range(model.nj):
         if parent[j] == 0:
             br, roots = roots, roots + 1
         elif parent[j] - 1 < j:
@@ -226,37 +280,108 @@ def pack_topology(model, team: int) -> np.ndarray:
             raise ValueError("joints are not in topological order")
         branch.append(br)
         sched[br % team].append(j)
-    prism = sum(1 << j for j in range(nj) if float(model.jtype[j]) != 0.0)
+    return sched
 
-    def lo(i, j):
-        return i * (i + 1) // 2 + j
 
-    def rotational(k):
-        return k < 6 or not prism >> (k - 6) & 1
+def _prismatic(model):
+    """The prismatic joints as a bit mask, and whether dof k is
+    rotational."""
+    prism = sum(1 << j for j in range(model.nj)
+                if float(model.jtype[j]) != 0.0)
+    return prism, lambda k: k < 6 or not prism >> (k - 6) & 1
 
-    cols = [[3, 4, 5] + sorted(6 + j for j in dofs)
-            for dofs in _ancestor_dofs(model.parent, nj)]
-    ents = []
-    for c in cols:
-        ents.append(
-            [lo(c[a], c[b]) | a << S | b << (S + 5)
-             | int(rotational(c[a]) and rotational(c[b])) << (S + 10)
-             for a in range(len(c)) for b in range(a + 1)]
-            + [lo(c[a], i) | a << S | i << (S + 5) | 2 << (S + 10)
-               for a in range(len(c)) for i in range(3)])
 
-    def rows(lists, width):
-        out = np.zeros((len(lists), width), np.int32)
-        for r, x in enumerate(lists):
-            out[r, :len(x)] = x
-        return out.ravel()
+def _body_columns(model) -> list:
+    """Each body's Jacobian columns: dofs 3, 4, 5, then those of the joints
+    on its path, ascending."""
+    return [[3, 4, 5] + sorted(6 + j for j in dofs)
+            for dofs in _ancestor_dofs(model.parent, model.nj)]
 
-    return np.concatenate([
-        np.asarray([len(js) for js in sched], np.int32), rows(sched, nj),
-        np.asarray([len(c) for c in cols], np.int32), rows(cols, na),
-        np.asarray([prism], np.int32),
-        np.asarray([len(e) for e in ents], np.int32),
-        rows(ents, na * (na + 1) // 2 + 3 * na)])
+
+def _shard_header_ints(nj: int, team: int) -> int:
+    """int32s of ``ShardTopo<NJ>`` before its items: nsteps, prism, the FK
+    schedules and the column list, padded to an even count (the items are
+    8-byte aligned)."""
+    n = 2 + team + team * nj + (nj + 1) * (nj + 3)
+    return n + n % 2
+
+
+def _shard_items(nj: int, team: int) -> int:
+    """Items ``ShardTopo<NJ>`` has room for: every body's entries of M, its
+    columns' and the base's bias terms, and a lane's padding."""
+    nb, na = nj + 1, nj + 3
+    return nb * (na * (na + 1) // 2 + 3 * na + na + 3) + team * nb
+
+
+def shard_topo_ints(nj: int, team: int) -> int:
+    """int32s of ``ShardTopo<NJ>`` (csrc/substep.cu) at ``team`` lanes: the
+    header and the items, two ints each."""
+    return _shard_header_ints(nj, team) + 2 * _shard_items(nj, team)
+
+
+def pack_shard_topology(model, team: int) -> tuple:
+    """The shard kernel's schedules in the int32 layout of
+    ``ShardTopo<NJ>`` in ``csrc/substep.cu`` (same field order), for
+    ``team`` lanes per env, the number of Jacobian columns and the steps of
+    items a lane walks.
+
+    The inverse of ``pack_topology``'s per-body lists: every body's columns
+    numbered body by body (column c: body | dof << 5); for each target, an
+    entry e of M or a dof k of the bias, its terms, one per body that adds
+    to it, in ascending body order: an entry's are the per-body entries of
+    ``pack_topology`` (kinds 0-2, the column pair as numbered here, or
+    column a and base dof b < 3 for kind 2); a dof's bias term is its
+    column's (kind 3 rotational, 4 prismatic), a base translation dof's the
+    body's force (kind 5). The targets are dealt to the lanes longest first,
+    each to the lane with the fewest items so far; lane l's s-th item is
+    ``item[s * team + l]``: x = a | b << 10 | body << 20 | kind << 25 |
+    last of its target << 28, y = the target (-1 pads a lane to
+    ``nsteps``). The items come last, after a header padded to an even
+    count of ints, so a block copies the header and ``nsteps`` steps."""
+    nj, nb = model.nj, model.nb
+    na, ni = nj + 3, _shard_items(nj, team)
+    sched = _fk_schedule(model, team)
+    prism, rotational = _prismatic(model)
+    cols = _body_columns(model)
+    first = np.cumsum([0] + [len(c) for c in cols]).tolist()
+    terms = {}       # (0, e) or (1, k): [x] in body order
+
+    def add(target, a, b, n, kind):
+        terms.setdefault(target, []).append(
+            a | b << 10 | n << 20 | kind << 25)
+
+    for n, c in enumerate(cols):
+        f = first[n]
+        for a in range(len(c)):
+            for b in range(a + 1):
+                add((0, _lo(c[a], c[b])), f + a, f + b, n,
+                    int(rotational(c[a]) and rotational(c[b])))
+            for i in range(3):
+                add((0, _lo(c[a], i)), f + a, i, n, 2)
+        for a, k in enumerate(c):
+            add((1, k), f + a, 0, n, 3 if rotational(k) else 4)
+        for i in range(3):
+            add((1, i), 0, 0, n, 5)
+    lanes = [[] for _ in range(team)]
+    for target in sorted(terms, key=lambda t: -len(terms[t])):
+        lane = min(range(team), key=lambda ln: len(lanes[ln]))
+        xs = terms[target]
+        lanes[lane] += [(x | int(i == len(xs) - 1) << 28, target[1])
+                        for i, x in enumerate(xs)]
+    nsteps = max(len(xs) for xs in lanes)   # <= ni / team (longest first)
+    item = np.zeros((ni, 2), np.int32)
+    item[:, 1] = -1
+    for ln, xs in enumerate(lanes):
+        for st, xy in enumerate(xs):
+            item[st * team + ln] = xy
+    col = np.zeros(nb * na, np.int32)
+    col[:first[-1]] = [n | k << 5 for n, c in enumerate(cols) for k in c]
+    head = np.concatenate([
+        np.asarray([nsteps, prism], np.int32),
+        np.asarray([len(js) for js in sched], np.int32), _rows(sched, nj),
+        col])
+    pad = np.zeros(_shard_header_ints(nj, team) - head.size, np.int32)
+    return np.concatenate([head, pad, item.ravel()]), first[-1], nsteps
 
 
 def _query(symbol: str, nj: int) -> int:
@@ -295,6 +420,44 @@ def _model_tensors(sim, device):
                torch.as_tensor(topo, device=device))
         cache[key] = hit
     return hit[1], hit[2]
+
+
+def _shard_topology(sim, device):
+    """``pack_shard_topology`` on the card, cached on the model per device:
+    (the schedules, the number of columns, the steps of items)."""
+    cache = sim.model.__dict__.setdefault("_substep_shard_topo", {})
+    hit = cache.get(str(device))
+    if hit is None:
+        nj = sim.model.nj
+        topo, ncol, nsteps = pack_shard_topology(
+            sim.model, _query("substep_shard_team", nj))
+        want = _query("substep_shard_topo_ints", nj)
+        if want != topo.size:
+            raise RuntimeError(f"shard schedule packing has {topo.size} "
+                               f"ints, the kernel expects {want}")
+        hit = (torch.as_tensor(topo, device=device), ncol, nsteps)
+        cache[str(device)] = hit
+    return hit
+
+
+def shard_launch_shape(sim, device) -> dict:
+    """The shard kernel's launch shape for this sim's model on the current
+    card: lanes an env, envs, threads and dynamic shared memory bytes a
+    block, blocks resident on an SM, registers and local memory bytes
+    (stack and spills) a thread."""
+    _, ncol, nsteps = _shard_topology(sim, device)
+    fn = _build.load(SOURCE, kernel(sim.model.nj).defines).substep_shard_shape
+    ref = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [ctypes.c_int] * 3 + [ref] * 7
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(7)]
+    err = fn(sim.model.nj, ncol, nsteps, *(ctypes.byref(x) for x in out))
+    if err:
+        raise RuntimeError(f"substep_shard_shape: CUDA error {err}")
+    keys = ("team", "envs", "threads", "smem_bytes", "blocks_per_sm",
+            "registers", "local_bytes")
+    return dict(zip(keys, (x.value for x in out)), columns=ncol,
+                steps=nsteps)
 
 
 def dr_rows(sim, B: int, device) -> torch.Tensor:
@@ -420,9 +583,30 @@ def launch(sim, args: SubstepArgs, B: int, device) -> None:
                          device)
 
 
+def launch_shard(sim, args: SubstepArgs, B: int, device) -> None:
+    """The shard kernel on a prepared argument struct."""
+    params, _ = _model_tensors(sim, device)
+    topo, ncol, nsteps = _shard_topology(sim, device)
+    shard_kernel(sim.model.nj)(
+        [params.data_ptr(), topo.data_ptr(), ctypes.addressof(args)],
+        [sim.model.nj, len(sim.model.contact_body), B, ncol, nsteps],
+        device)
+
+
 def substep(sim, state: RobotState, tau: torch.Tensor) -> RobotState:
     """One physics substep: the kernel on CUDA tensors, the plain version
     on CPU tensors."""
+    return _substep(sim, state, tau, launch)
+
+
+def substep_shard(sim, state: RobotState, tau: torch.Tensor) -> RobotState:
+    """One shard's physics substep: the shard kernel (K3s) on CUDA
+    tensors, equal to ``substep``'s bit for bit; the plain version on CPU
+    tensors."""
+    return _substep(sim, state, tau, launch_shard)
+
+
+def _substep(sim, state, tau, launch_fn) -> RobotState:
     dev = state.base_pos.device
     if dev.type == "cpu":
         return substep_plain(sim, state, tau)
@@ -438,14 +622,15 @@ def substep(sim, state: RobotState, tau: torch.Tensor) -> RobotState:
     outs = [torch.empty((B, n), dtype=torch.float32, device=dev)
             for n in (3, 4, nj, nv)]
     args, _views = substep_args(sim, state, tau, outs)
-    launch(sim, args, B, dev)
+    launch_fn(sim, args, B, dev)
     return RobotState(*outs)
 
 
 def substep_sharded(sim, state, tau, mesh, axis="dp"):
     """One physics substep of an env batch sharded over ``mesh``: on each
-    shard ``substep`` (K3 on a CUDA shard, which launches or raises; the
-    plain version on a CPU shard) on that shard's sim from
+    shard ``substep_shard`` (the shard kernel on a CUDA shard, which
+    launches or raises; the plain version on a CPU shard) on that shard's
+    sim from
     ``sim.shard(mesh)``, which holds the shard's rows of every per-env DR
     field (``base_mass_delta`` (B,), contact stiffness, damping and
     friction where per env) on its device; everything else replicated.
@@ -472,5 +657,5 @@ def substep_sharded(sim, state, tau, mesh, axis="dp"):
             raise ValueError(f"a shard's state on {st.base_pos.device}, "
                              f"its sim on {s.device}")
         with _on_device(s.device):
-            out.append(substep(s, st, t))
+            out.append(substep_shard(s, st, t))
     return Sharded(out, mesh, B)

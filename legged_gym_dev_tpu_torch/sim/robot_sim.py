@@ -15,9 +15,12 @@ routes non-flat terrain to its XLA path. The route is read from the sim
 alone.
 
 ``shard(mesh)`` cuts a sim into per-shard sims (per-env DR fields
-sliced, everything on the shard's device), each an ordinary sim of its
-shard's envs. With ``shard_mesh`` set, ``substep`` on a whole batch goes
-shard by shard through ``substep_kernels.substep_sharded`` on those sims.
+sliced, everything on the shard's device), each a sim of its shard's envs
+whose ``substep`` takes the shard kernel (``substep_kernels.substep_shard``,
+K3s: designed for a shard's batch, equal to the substep kernel bit for
+bit); the envs' replicas over a mesh (``envs.ShardedEnv``) step on them.
+With ``shard_mesh`` set, ``substep`` on a whole batch goes shard by shard
+through ``substep_kernels.substep_sharded`` on those sims.
 """
 from __future__ import annotations
 
@@ -70,6 +73,8 @@ class RobotSim:
     # ``pallas_substep_sharded`` route; a heightfield keeps the plain
     # substep).
     shard_mesh: Optional[tuple] = None
+    # A shard's sim (from ``shard``): ``substep`` takes the shard kernel.
+    is_shard: bool = False
 
     def replace(self, **kw) -> "RobotSim":
         return dataclasses.replace(self, **kw)
@@ -79,8 +84,8 @@ class RobotSim:
         [i b, (i+1) b) of every per-env field (``base_mass_delta`` (B,);
         contact parameters of two or more dims, (B, 1), (B, 1, 1) or
         (B, nc)), and the model's, springs' and contact's tensors on its
-        device; no mesh of their own. Cut once per mesh and kept on the
-        sim."""
+        device; no mesh of their own, and ``is_shard`` set. Cut once per
+        mesh and kept on the sim."""
         from ..parallel.mesh import place
 
         cache = self.__dict__.setdefault("_shards", {})
@@ -112,7 +117,7 @@ class RobotSim:
                     torch.as_tensor(bmd), i, dev,
                     torch.as_tensor(bmd).ndim >= 1)),
                 terrain_fn=place(self.terrain_fn, dev),
-                shard_mesh=None))
+                shard_mesh=None, is_shard=True))
         cache[key] = (mesh, out)
         return out
 
@@ -153,6 +158,8 @@ class RobotSim:
 
                 return gather(substep_kernels.substep_sharded(
                     self, state, tau, *self.shard_mesh))
+            if self.is_shard:
+                return substep_kernels.substep_shard(self, state, tau)
             return substep_kernels.substep(self, state, tau)
         return substep_kernels.substep_plain(self, state, tau)
 

@@ -40,17 +40,54 @@ Variants:
                           base, base, baseline)
 A phase's time is the difference between two cuts.
 
+``--shard``: the shard kernel (K3s, ``substep_shard_kernel``) instead, at
+B=1024 (one shard of the 4-shard mesh), on the same robots:
+  shard32                 the source as it is: a warp an env, 4 envs a block
+  shard16                 16 lanes an env (8 envs a block)
+  shard32_e2, shard32_e8  2 or 8 envs a block
+  shard32_<cut>           returns after the copies (load), forward
+                          kinematics (fk), the Jacobian columns (cols), the
+                          mass matrix and bias (mass) or the Cholesky
+                          factor (chol)
+  shard32_subst0          both substitutions on lane 0 after the factor,
+                          as K3 does them (instead of the forward one in
+                          every lane beside the factor)
+  shard32_colfwd          the forward substitution after the factor, a
+                          column at a time (y_j by shuffle, lane i > j
+                          subtracts L_ij y_j), the backward sweep on lane 0
+  shard32_global          the schedules read from global memory instead of
+                          a copy in shared memory
+  shard32_libpivot        the Cholesky's pivots from the library's sqrtf
+                          and division instead of pivot_fast
+  shard32_unroll1         the item walk not unrolled
+  shard32_empty           returns at once (the launch's own time)
+  team8, team8_<cut>      K3 from the same source and its cuts, at B=1024
+  nj4_...                 shard32, shard16, the cuts up to mass, and K3
+                          (nj4_team8) on the 4-joint robot
+then K3 and the shard kernel of the source in turns (K3, shard, shard,
+K3) at B=1024 and 4096, both across batches, and shard32_subst0 at B=2048
+and 4096. Each time is the device
+time a launch of 20 launches queued behind a sleep (``chip_smoke.
+device_ms``); each variant's outputs are checked against K3's (bit for
+bit, cuts excepted). It first holds ``pivot_fast`` against the library's
+``sqrtf(max(a, 1e-12))`` and ``1.0f / d`` on all 2^32 floats; with
+``--baseline FILE`` it also compiles
+``substep_kernel`` at every joint count 1-24 from FILE and from the source
+(``nvcc -cubin``) and says whether each instance has the same SASS.
+
 Usage: ``python3 scripts/torch_substep_variants.py [--only a,b]
-[--one-thread FILE] [--baseline FILE]`` (needs nvcc and a card; ``--only``
-keeps the variants whose names start with one of the given prefixes). Write the one-thread
-kernel's file beforehand, from a checkout with its history:
-``git show 75c82da:legged_gym_dev_tpu_torch/csrc/substep.cu >
-build/substep_one_thread.cu``.
+[--one-thread FILE] [--baseline FILE] [--shard]`` (needs nvcc and a card;
+``--only`` keeps the variants whose names start with one of the given
+prefixes). Write the one-thread kernel's file beforehand, from a checkout
+with its history: ``git show 75c82da:legged_gym_dev_tpu_torch/csrc/
+substep.cu > build/substep_one_thread.cu``; the baseline likewise from the
+commit to compare with.
 """
 import argparse
 import concurrent.futures
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -138,11 +175,382 @@ def build(item):
     if proc.returncode:
         raise RuntimeError(f"{name}: {proc.stderr}")
     regs = {}
-    nj = f"ILi{nj}E"
+    kernel = "substep_shard_kernel" if "shard" in name else "substep_kernel"
     for mangled, info in cs.ptxas_summary(proc.stdout + proc.stderr).items():
-        if "substep_kernel" in mangled and nj in mangled:
+        if f"{kernel}ILi{nj}E" in mangled:
             regs = info
     return name, (ctypes.CDLL(str(lib)), regs)
+
+
+# --shard: the shard kernel's variants, anchored on its phase comments
+SHARD_TEAM = "constexpr int shard_team_of() { return 32; }"
+SHARD_THREADS = "constexpr int kShardThreads = 128;"
+SHARD_CUTS = {
+    "load": "  // ---- shard: torques; M and bias set",
+    "fk": "  // ---- shard: per body and per contact sphere",
+    "cols": "  // ---- shard: mass matrix and bias, each lane's",
+    "mass": "  // ---- shard: right-hand side",
+    "chol": "    // ---- shard: the backward substitution on lane 0"}
+SHARD_FORWARD = (
+    """    float t[NV], y[NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) t[i] = s.rhs[i];
+""", """      if (j > 0) {
+#pragma unroll
+        for (int i = j; i < NV; ++i)
+          t[i] = t[i] - s.M[lo(i, j - 1)] * y[j - 1];
+      }
+      y[j] = t[j] / d;
+""")
+SHARD_BACKWARD_START = "    // ---- shard: the backward substitution on lane 0"
+SHARD_BACKWARD_END = "  __syncwarp();\n\n  // ---- shard: velocity clamp"
+LANE0_SUBST = """    // both substitutions on lane 0, as K3 does them
+    if (lane == 0) {
+      float y[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        float t = s.rhs[i];
+#pragma unroll
+        for (int k = 0; k < i; ++k) t = t - s.M[lo(i, k)] * y[k];
+        y[i] = t / s.dg[i];
+      }
+#pragma unroll
+      for (int i = NV - 1; i >= 0; --i) {
+        float t = y[i];
+#pragma unroll
+        for (int k = i + 1; k < NV; ++k) t = t - s.M[lo(k, i)] * y[k];
+        y[i] = t / s.dg[i];
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i) s.qdd[i] = y[i];
+    }
+  }
+"""
+COLUMN_FORWARD = """    // the forward substitution a column at a time: lane i holds row i's
+    // running t_i; y_j = t_j / d_j comes from lane j by shuffle
+    constexpr int R = (NV + T - 1) / T;
+    float t[R], y[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = lane + r * T;
+      t[r] = i < NV ? s.rhs[i] : 0.0f;
+      y[r] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const float q = t[j / T] / s.dg[j];
+      const float yj = __shfl_sync(0xffffffffu, q, j % T, T);
+      if (lane == j % T) y[j / T] = q;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = lane + r * T;
+        if (i > j && i < NV) t[r] = t[r] - s.M[lo(i, j)] * yj;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (lane + r * T < NV) s.qdd[lane + r * T] = y[r];
+    __syncwarp();
+    // the backward sweep on lane 0
+    if (lane == 0) {
+      float x[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) x[i] = s.qdd[i];
+#pragma unroll
+      for (int i = NV - 1; i >= 0; --i) {
+        float u = x[i];
+#pragma unroll
+        for (int k = i + 1; k < NV; ++k) u = u - s.M[lo(k, i)] * x[k];
+        x[i] = u / s.dg[i];
+      }
+#pragma unroll
+      for (int i = 0; i < NV; ++i) s.qdd[i] = x[i];
+    }"""
+SHARD_TOPO_SMEM = (
+    "  const ShardTopo<NJ>& topo = *reinterpret_cast<const ShardTopo<NJ>*>"
+    "(smem);")
+SHARD_TOPO_COPY = """  for (int i = threadIdx.x; i < TI; i += blockDim.x)
+    cp_async4(smem + i, topo_g + i);
+"""
+SHARD_PIVOT = "      pivot_fast(acc, d, inv);"
+SHARD_WALK = "#pragma unroll 2\n    for (int st = 0; st < nsteps; ++st) {"
+SHARD_START = "  // ---- shard: the model, the schedules used"
+PIVOT_CHECK = r"""
+#define SUBSTEP_NJ 1
+#include "{source}"
+// pivot_fast against the library's values it stands for, on every float
+__global__ void pivot_check(unsigned long long* bad, unsigned* first) {{
+  const unsigned long long step = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                              threadIdx.x;
+       i < (1ull << 32); i += step) {{
+    const float a = __uint_as_float((unsigned)i);
+    const float wd = sqrtf(max_c(a, 1e-12f)), wi = 1.0f / wd;
+    float d, inv;
+    pivot_fast(a, d, inv);
+    const bool same_d = __float_as_uint(d) == __float_as_uint(wd) ||
+                        (d != d && wd != wd);
+    const bool same_i = __float_as_uint(inv) == __float_as_uint(wi) ||
+                        (inv != inv && wi != wi);
+    if (!same_d || !same_i) {{
+      atomicAdd(bad, 1ull);
+      atomicMin(first, (unsigned)i);
+    }}
+  }}
+}}
+extern "C" int pivot_check_run(unsigned long long* bad, unsigned* first) {{
+  pivot_check<<<1056, 256>>>(bad, first);
+  return (int)cudaDeviceSynchronize();
+}}
+"""
+
+
+def pivot_check():
+    """pivot_fast of the source against sqrtf(max(a, 1e-12)) and 1.0f / d
+    on all 2^32 floats: (mismatches, the first one's bits). NaN matches
+    NaN."""
+    src, lib = OUT / "pivot_check.cu", OUT / "pivot_check.so"
+    src.write_text(PIVOT_CHECK.format(source=_build.CSRC / sk.SOURCE))
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], capture_output=True, text=True, check=True)
+    fn = ctypes.CDLL(str(lib)).pivot_check_run
+    fn.argtypes = [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    first = torch.full((1,), -1, dtype=torch.int32, device="cuda")
+    err = fn(bad.data_ptr(), first.data_ptr())
+    if err:
+        raise RuntimeError(f"pivot_check failed: CUDA error {err}")
+    return int(bad.item()), int(first.item()) & 0xffffffff
+
+
+def shard_variants():
+    src = (_build.CSRC / sk.SOURCE).read_text()
+
+    def replace(text, a, b):
+        if a not in text:
+            raise RuntimeError(f"anchor not in the source: {a!r}")
+        return text.replace(a, b)
+
+    def cut(text, anchor):
+        return replace(text, anchor, "  if (B > 0) return;\n" + anchor)
+
+    out = {"shard32": src,
+           "shard16": replace(src, SHARD_TEAM,
+                              SHARD_TEAM.replace("32", "16")),
+           "shard32_e2": replace(src, SHARD_THREADS,
+                                 SHARD_THREADS.replace("128", "64")),
+           "shard32_e8": replace(src, SHARD_THREADS,
+                                 SHARD_THREADS.replace("128", "256"))}
+    for name, anchor in SHARD_CUTS.items():
+        out[f"shard32_{name}"] = cut(src, anchor)
+    # the forward substitution after the factor instead of beside it
+    after = replace(replace(src, SHARD_FORWARD[0], ""), SHARD_FORWARD[1], "")
+    start = after.index(SHARD_BACKWARD_START)
+    end = after.index(SHARD_BACKWARD_END)
+    out["shard32_subst0"] = after[:start] + LANE0_SUBST + after[end:]
+    out["shard32_colfwd"] = after[:start] + COLUMN_FORWARD + "\n  }\n" + \
+        after[end:]
+    out["shard32_global"] = replace(
+        replace(src, SHARD_TOPO_COPY, ""), SHARD_TOPO_SMEM,
+        SHARD_TOPO_SMEM.replace("(smem)", "(topo_g)"))
+    out["shard32_libpivot"] = replace(
+        src, SHARD_PIVOT, "      d = sqrtf(max_c(acc, 1e-12f));\n"
+        "      inv = 1.0f / d;")
+    out["shard32_unroll1"] = replace(src, SHARD_WALK,
+                                     SHARD_WALK.replace("2", "1", 1))
+    out["shard32_empty"] = cut(src, SHARD_START)
+    out["team8"] = src
+    for name, anchor in CUTS.items():
+        out[f"team8_{name}"] = cut(src, anchor)
+    for name in ("shard32", "shard16", "shard32_load", "shard32_fk",
+                 "shard32_cols", "shard32_mass", "team8", "team8_fk",
+                 "team8_mass"):
+        out[f"nj4_{name}"] = out[name]
+    return out
+
+
+def sass_of(path, kernel):
+    """{instance (``<kernel>ILi<nj>E``): SASS lines without addresses and
+    encodings} of ``kernel`` in a cubin (the names' internal prefix carries
+    a hash of the file, so it is dropped)."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        m = re.search(rf"\d({kernel}ILi\d+E)", part.splitlines()[0])
+        if m:
+            lines = (re.sub(r"/\*[^*]*\*/", "", line).strip()
+                     for line in part.splitlines()[1:])
+            out[m.group(1)] = [line for line in lines if line]
+    return out
+
+
+def sass_check(baseline):
+    """``substep_kernel`` at every joint count from ``baseline`` and from
+    the source (one ``nvcc -cubin`` each, all at once): {nj: same SASS}."""
+    texts = {"baseline": Path(baseline).read_text(),
+             "base": (_build.CSRC / sk.SOURCE).read_text()}
+    for name, text in texts.items():
+        (OUT / f"sass_{name}.cu").write_text(text)
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+
+    def cubin(job):
+        name, nj = job
+        path = OUT / f"sass_{name}_nj{nj}.cubin"
+        subprocess.run([_build._nvcc(), *flags, "-cubin",
+                        f"-DSUBSTEP_NJ={nj}", "-o", str(path),
+                        str(OUT / f"sass_{name}.cu")], check=True,
+                       capture_output=True)
+        return job, sass_of(path, "substep_kernel")
+
+    jobs = [(name, nj) for nj in range(1, sk.MAX_NJ + 1) for name in texts]
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        got = dict(pool.map(cubin, jobs))
+    return {nj: bool(got["base", nj]) and got["base", nj] == got["baseline",
+                                                               nj]
+            for nj in range(1, sk.MAX_NJ + 1)}
+
+
+class ShardCase:
+    """A robot's single-step inputs at batch B and the raw launches of K3
+    and of the shard kernel of a library on them."""
+
+    def __init__(self, robot, B, dev):
+        rc = cs.robot_cases()
+        inp = rc.substep_inputs(robot, B, seed=7, dr=True)
+        self.sim = rc.torch_sim(robot, dev, inp)
+        self.st, self.tau = rc.torch_state(inp, dev)
+        self.B, self.dev = B, dev
+        m = self.sim.model
+        self.nj, self.nv, self.nc = m.nj, m.nv, len(m.contact_body)
+        self.params = torch.as_tensor(sk.pack_model(self.sim), device=dev)
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(self, lib, shard):
+        """(launch function, its outputs) of K3 or the shard kernel."""
+        nj = self.nj
+        outs = [torch.empty((self.B, n), device=self.dev)
+                for n in (3, 4, nj, self.nv)]
+        args, views = sk.substep_args(self.sim, self.st, self.tau, outs)
+        if shard:
+            lib.substep_shard_team.restype = ctypes.c_int
+            topo, ncol, nsteps = sk.pack_shard_topology(
+                self.sim.model, lib.substep_shard_team(nj))
+            fn, extra = lib.substep_shard, (ncol, nsteps)
+        else:
+            lib.substep_team.restype = ctypes.c_int
+            topo = sk.pack_topology(self.sim.model, lib.substep_team(nj))
+            fn, extra = lib.substep, ()
+        topo = torch.as_tensor(topo, device=self.dev)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (
+            3 + len(extra)) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        raw = (self.params.data_ptr(), topo.data_ptr(),
+               ctypes.addressof(args), nj, self.nc, self.B, *extra,
+               self.stream)
+
+        def launch(keep=(args, views, topo)):
+            if fn(*raw):
+                raise RuntimeError("launch failed")
+        return launch, outs
+
+
+def dev_time(call):
+    ms, *q = cs.device_ms(call)
+    return ms if ms is not None else cs.time_ms(call, 50, warmup=3)
+
+
+def shard_main(opts, only, card):
+    rec = {"card": card}
+    bad, first = pivot_check()
+    rec["pivot_check"] = dict(mismatches=bad, first=first)
+    print(f"pivot_fast against sqrtf / division on all 2^32 floats: {bad} "
+          f"mismatches" + (f" (first 0x{first:08x})" if bad else ""),
+          flush=True)
+    if opts.baseline is not None:
+        same = sass_check(opts.baseline)
+        rec["same_sass"] = same
+        print("SASS of substep_kernel<nj>, source against baseline: "
+              + json.dumps(same), flush=True)
+    todo = {k: v for k, v in shard_variants().items()
+            if not only or any(k.startswith(x) for x in only)}
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        libs = dict(pool.map(build, todo.items()))
+    dev = torch.device("cuda")
+    B = 1024
+    for robot, prefix in (("quadruped", ""), ("hopper4", "nj4_")):
+        case = ShardCase(robot, B, dev)
+        base = libs.get(prefix + "shard32", libs.get("shard32"))
+        if base is None:
+            continue
+        k3_call, k3_out = case.call(base[0], shard=False)
+        k3_call()
+        res = rec.setdefault(robot, {})
+        for name, (lib, regs) in libs.items():
+            if name.startswith("nj4_") != (prefix == "nj4_"):
+                continue
+            shard = "shard" in name
+            call, outs = case.call(lib, shard)
+            call()
+            torch.cuda.synchronize()
+            whole = not any(name.endswith(f"_{c}")
+                            for c in (*SHARD_CUTS, *CUTS, "empty"))
+            same = all(torch.equal(a, b) for a, b in zip(outs, k3_out))
+            if whole and not same:
+                raise RuntimeError(f"{name}: outputs differ from K3's")
+            res[name] = dict(ms=dev_time(call), ptxas=regs,
+                             equal_to_k3=same if whole else None)
+            print(f"{robot:9s} B={B} {name:20s} {res[name]['ms']:.4f} ms "
+                  + json.dumps({k: regs.get(k) for k in
+                                ("registers", "spill_stores")}), flush=True)
+        # what each phase costs: the difference between two cuts
+        for kernel, cuts in (("shard32", ("load", "fk", "cols", "mass",
+                                          "chol")),
+                             ("team8", ("load", "fk", "mass", "chol"))):
+            names = [f"{prefix}{kernel}_{c}" for c in cuts] + [
+                prefix + kernel]
+            have = [n for n in names if n in res]
+            steps, last = {}, 0.0
+            for n in have:
+                steps[n.removeprefix(prefix)] = res[n]["ms"] - last
+                last = res[n]["ms"]
+            res[f"{kernel}_phases"] = steps
+            print(f"{robot:9s} {kernel} phases (ms): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in steps.items()), flush=True)
+        # K3 and the shard kernel of the source in turns, and by batch
+        for Bt in (1024, 4096):
+            c = ShardCase(robot, Bt, dev)
+            k3, _ = c.call(base[0], shard=False)
+            sh, _ = c.call(base[0], shard=True)
+            turns = [[n, dev_time(f)] for n, f in (("K3", k3), ("shard", sh),
+                                                  ("shard", sh), ("K3", k3))]
+            res[f"turns_B{Bt}"] = turns
+            print(f"{robot:9s} B={Bt} in turns: " + ", ".join(
+                f"{n} {ms:.4f}" for n, ms in turns), flush=True)
+        for name in ("shard32_subst0",):
+            if prefix or name not in libs:
+                continue
+            for Bt in (2048, 4096):
+                c = ShardCase(robot, Bt, dev)
+                res[name][f"ms_B{Bt}"] = dev_time(
+                    c.call(libs[name][0], shard=True)[0])
+            print(f"{robot:9s} {name} at B=2048 / 4096: "
+                  f"{res[name]['ms_B2048']:.4f} / "
+                  f"{res[name]['ms_B4096']:.4f} ms", flush=True)
+        sweep = {}
+        for Bs in (256, 512, 2048, 8192):
+            c = ShardCase(robot, Bs, dev)
+            sweep[Bs] = {n: dev_time(c.call(base[0], shard=n == "shard")[0])
+                         for n in ("K3", "shard")}
+        res["by_batch"] = sweep
+        print(f"{robot:9s} by batch (K3 / shard ms): " + ", ".join(
+            f"B={b} {v['K3']:.4f} / {v['shard']:.4f}"
+            for b, v in sweep.items()), flush=True)
+    print(json.dumps({"card": card, "B": B, "shard": rec}))
+    return 0
 
 
 def device_ms(call):
@@ -161,12 +569,19 @@ def main():
     ap.add_argument("--only", default="")
     ap.add_argument("--one-thread", default=None)
     ap.add_argument("--baseline", default=None)
+    ap.add_argument("--shard", action="store_true")
     opts = ap.parse_args()
     only = [x for x in opts.only.split(",") if x]
     if not torch.cuda.is_available():
         print("torch_substep_variants: no CUDA device", file=sys.stderr)
         return 2
     OUT.mkdir(parents=True, exist_ok=True)
+    if opts.shard:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True).stdout.strip()
+        print(card, flush=True)
+        return shard_main(opts, only, card)
     todo = {k: v for k, v in variants(opts.one_thread, opts.baseline).items()
             if not only or any(k.startswith(x) for x in only)}
     with concurrent.futures.ThreadPoolExecutor() as pool:

@@ -367,7 +367,7 @@ def test_substep_matches_plain_on_card(card, robot, B, dr):
     out = sk.substep(sim, st, tau)
     ref = sk.substep_plain(sim, st, tau)
     torch.cuda.synchronize()
-    assert sk.launches() == {"substep": 1}
+    assert sk.launches() == {"substep": 1, "substep_sharded": 0}
     for name in ("base_pos", "base_quat", "q", "v"):
         assert rel(getattr(out, name), getattr(ref, name)) <= 1e-4, name
 
@@ -478,7 +478,7 @@ def test_substep_raises_on_card_outside_its_range(card):
     sk.reset_launches()
     out = rough.substep(st, tau)
     torch.cuda.synchronize()
-    assert sk.launches() == {"substep": 0}
+    assert sk.launches() == {"substep": 0, "substep_sharded": 0}
     assert bool(torch.isfinite(out.v).all())
 
 
@@ -542,10 +542,11 @@ def test_play_launches_the_substep_kernel_on_card(card, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("robot", ["quadruped", "hopper"])
 def test_substep_sharded_on_card(card, robot):
-    """K3's sharded route on a 2-shard mesh of the card (the one card
-    listed twice): one launch per shard, each on its shard's rows of the
-    per-env DR values, within 1e-6 of one unsharded K3 launch (K3 works
-    env by env, so it should be 0)."""
+    """K3s, the sharded route, on a 2-shard mesh of the card (the one card
+    listed twice): one launch of the shard kernel per shard and none of
+    K3, each on its shard's rows of the per-env DR values, within 1e-6 of
+    one unsharded K3 launch (both work env by env in the same order, so
+    it is 0)."""
     from legged_gym_dev_tpu_torch.parallel.mesh import gather, make_mesh
 
     rc = robot_cases()
@@ -557,8 +558,92 @@ def test_substep_sharded_on_card(card, robot):
     sk.reset_launches()
     out = sk.substep_sharded(sim, st, tau, mesh, "dp")
     torch.cuda.synchronize()
-    assert sk.launches() == {"substep": 2}
+    assert sk.launches() == {"substep": 0, "substep_sharded": 2}
     assert [s.base_pos.device for s in out] == list(mesh.devices.flat)
     got = gather(out)
     for name in ("base_pos", "base_quat", "q", "v"):
         assert rel(getattr(got, name), getattr(ref, name)) <= 1e-6, name
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+FIELDS = ("base_pos", "base_quat", "q", "v")
+
+
+def shard_against_k3(sim, st, tau, plain_sim=None, plain_state=None):
+    """The shard kernel and K3 on the same inputs: one launch each, outputs
+    equal bit for bit (NaN where K3 has NaN), finite where K3 is, and
+    within 1e-4 of the plain version on the finite envs."""
+    sk.reset_launches()
+    out = sk.substep_shard(sim, st, tau)
+    k3 = sk.substep(sim, st, tau)
+    ref = sk.substep_plain(sim if plain_sim is None else plain_sim,
+                           st if plain_state is None else plain_state,
+                           tau)
+    torch.cuda.synchronize()
+    assert sk.launches() == {"substep": 1, "substep_sharded": 1}
+    for name in FIELDS:
+        got, want = getattr(out, name), getattr(k3, name)
+        assert got.is_contiguous()
+        assert torch.equal(got.isnan(), want.isnan()), name
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()), name
+        ok = torch.isfinite(want).all(-1)
+        assert rel(got[ok], getattr(ref, name)[ok]) <= 1e-4, name
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nj", range(1, sk.MAX_NJ + 1))
+def test_substep_shard_equals_k3_every_joint_count_on_card(card, nj):
+    """The shard kernel at every joint count, on the chain of that many
+    joints with per-env DR rows at a ragged batch: K3's outputs bit for
+    bit."""
+    rc = robot_cases()
+    inp = rc.substep_inputs(f"chain{nj}", 1000, seed=nj, dr=True)
+    sim = rc.torch_sim(f"chain{nj}", card, inp)
+    shard_against_k3(sim, *rc.torch_state(inp, card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["quadruped", "hopper4", "hopper"])
+@pytest.mark.parametrize("B", [1, 1000, 1023, 1024, 4096])
+def test_substep_shard_equals_k3_on_card(card, robot, B):
+    """The shard kernel on the test robots with per-env DR rows, at the
+    mesh's shard batch (1024), the whole batch and ragged batches: K3's
+    outputs bit for bit."""
+    rc = robot_cases()
+    inp = rc.substep_inputs(robot, B, seed=B + 1, dr=True)
+    sim = rc.torch_sim(robot, card, inp)
+    shard_against_k3(sim, *rc.torch_state(inp, card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [False, True])
+@pytest.mark.parametrize("form", ["scalar", "per_sphere", "B1", "B11",
+                                  "Bnc"])
+@pytest.mark.parametrize("robot", ["quadruped", "hopper4"])
+def test_substep_shard_views_and_dr_forms_on_card(card, robot, form,
+                                                  payload):
+    """The shard kernel reading strided state views and each DR broadcast
+    form in place, with and without a base payload mass: K3's outputs on
+    the same views bit for bit."""
+    rc = robot_cases()
+    B = 1000
+    inp = rc.substep_inputs(robot, B, seed=len(form) + 3 * payload)
+    sim, plain_sim = rc.dr_form_sims(rc.torch_sim(robot, card), form, B,
+                                     payload, seed=11)
+    st, tau = rc.torch_state(inp, card)
+    shard_against_k3(sim, rc.strided_state(st), tau, plain_sim, st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["quadruped", "hopper4"])
+def test_substep_shard_keeps_nan_on_card(card, robot):
+    """A NaN env stays NaN through the shard kernel, as through K3, and
+    the other envs stay finite."""
+    rc = robot_cases()
+    inp = rc.substep_inputs(robot, 1024, seed=0, dr=True)
+    inp["v"][5, 6] = np.nan
+    sim = rc.torch_sim(robot, card, inp)
+    out = shard_against_k3(sim, *rc.torch_state(inp, card))
+    finite = torch.isfinite(out.v).all(-1).cpu()
+    assert not bool(finite[5]) and int(finite.sum()) == 1023

@@ -121,7 +121,8 @@ def test_rollout_on_the_quadruped_task():
     state, obs = env.reset(gen)
     sk.reset_launches()
     state, batch, metrics = rollout(env, model, state, cfg, gen, obs=obs)
-    assert sk.launches() == {"substep": 0}      # the CPU takes the plain path
+    # the CPU takes the plain path
+    assert sk.launches() == {"substep": 0, "substep_sharded": 0}
     assert batch.obs.shape == (3, B, 65) and batch.actions.shape == (3, B, 12)
     assert batch.log_stds.shape == (3, 12)
     torch.testing.assert_close(batch.obs[0], obs)

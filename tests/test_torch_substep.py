@@ -76,10 +76,13 @@ def test_cpu_tensors_take_the_plain_version():
     st, tau = torch_state(inp)
     sk.reset_launches()
     out = sk.substep(sim, st, tau)
+    shard = sk.substep_shard(sim, st, tau)
     ref = sk.substep_plain(sim, st, tau)
-    assert sk.launches() == {"substep": 0}
+    assert sk.launches() == {"substep": 0, "substep_sharded": 0}
     for f in FIELDS:
         torch.testing.assert_close(getattr(out, f), getattr(ref, f),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(getattr(shard, f), getattr(ref, f),
                                    rtol=0, atol=0)
 
 
@@ -261,6 +264,121 @@ def test_pack_topology_schedules(robot, team):
         assert got == want and len(got) == elen[n]
 
 
+def _per_body_terms(m):
+    """K3's schedule (``pack_topology``) as {target: [(body, kind, column
+    dofs)]} in body order, read body by body as the kernel's body loop
+    adds the terms: each body's entries of M (kinds 0-2) and its columns'
+    bias terms (kind 3 rotational, 4 prismatic), and the base translation
+    dofs' force terms (kind 5)."""
+    nj, nb = m.nj, m.nb
+    na = nj + 3
+    ne_max = na * (na + 1) // 2 + 3 * na
+    t = sk.pack_topology(m, 8)
+    sizes = [8, 8 * nj, nb, nb * na, 1, nb, nb * ne_max]
+    _, _, alen, adof, prism, elen, ent = np.split(t, np.cumsum(sizes)[:-1])
+    adof, ent = adof.reshape(nb, na), ent.reshape(nb, ne_max)
+    S = sk.ent_shift(nj)
+    out = {}
+    for n in range(nb):
+        cols = [int(k) for k in adof[n, :alen[n]]]
+        for w in ent[n, :elen[n]]:
+            e, a, b, kind = (int(w) & (1 << S) - 1, int(w) >> S & 31,
+                             int(w) >> S + 5 & 31, int(w) >> S + 10)
+            out.setdefault(("M", e), []).append(
+                (n, kind, cols[a], b if kind == 2 else cols[b]))
+        for k in cols:
+            rot = k < 6 or not int(prism[0]) >> (k - 6) & 1
+            out.setdefault(("bias", k), []).append((n, 3 if rot else 4, k))
+        for i in range(3):
+            out.setdefault(("bias", i), []).append((n, 5))
+    return out
+
+
+def _unpack_shard(m, team):
+    """``pack_shard_topology`` read back: the lanes' item lists, nsteps, the
+    FK schedules, the column list (body, dof) and the number of
+    columns."""
+    nj, nb = m.nj, m.nb
+    na = nj + 3
+    t, ncol, nsteps = sk.pack_shard_topology(m, team)
+    assert t.size == sk.shard_topo_ints(nj, team)
+    head = 2 + team + team * nj + nb * na
+    item = t[head + head % 2:].reshape(-1, 2)
+    assert int(t[0]) == nsteps and not t[head:head + head % 2].any()
+    prism = int(t[1])
+    slen = t[2:2 + team]
+    sched = t[2 + team:2 + team + team * nj].reshape(team, nj)
+    col = t[2 + team + team * nj:head]
+    assert prism == sum(1 << j for j in range(nj) if m.jtype[j] != 0)
+    assert not item[nsteps * team:, 1].max(initial=-1) >= 0
+    lanes = [[tuple(int(v) for v in item[s * team + ln])
+              for s in range(nsteps)] for ln in range(team)]
+    cols = [(int(c) & 31, int(c) >> 5) for c in col[:ncol]]
+    assert not col[ncol:].any()
+    return lanes, nsteps, slen, sched, cols, ncol
+
+
+SCHEDULE_ROBOTS = ["quadruped", "hopper4", "chain16", "chain24"]
+
+
+@pytest.mark.parametrize("team", [32, 16])
+@pytest.mark.parametrize("robot", SCHEDULE_ROBOTS)
+def test_pack_shard_topology_inverts_the_schedules(robot, team):
+    """The shard kernel's schedules (``ShardTopo<NJ>``) read back target by
+    target give exactly K3's per-body terms: every (body, entry, column
+    pair, kind) of ``pack_topology``'s per-body lists once, in its entry's
+    list and nowhere else; each target's bodies ascending; each dof's bias
+    terms from exactly the bodies whose columns hold it; a target's terms
+    on one lane, ending with its last flag; the columns numbered body by
+    body in K3's column order; the FK schedules K3's at this team."""
+    from legged_gym_dev_tpu_torch.sim.kinematics import _ancestor_dofs
+
+    m = torch_sim(robot, "cpu").model
+    lanes, nsteps, slen, sched, cols, ncol = _unpack_shard(m, team)
+    paths = _ancestor_dofs(m.parent, m.nj)
+    body_cols = [[3, 4, 5] + sorted(6 + j for j in p) for p in paths]
+    assert cols == [(n, k) for n, c in enumerate(body_cols) for k in c]
+    assert ncol == sum(len(c) for c in body_cols)
+    got = {}
+    for items in lanes:
+        open_target = None
+        for x, y in items:
+            if y < 0:
+                assert open_target is None     # padding only between
+                continue                       # targets, at the end
+            a, b, n, kind = x & 1023, x >> 10 & 1023, x >> 20 & 31, \
+                x >> 25 & 7
+            key = ("M" if kind < 3 else "bias", y)
+            assert open_target in (None, key)
+            assert key not in got or open_target == key   # one lane
+            assert kind == 5 or cols[a][0] == n
+            if kind < 3:
+                assert cols[b][0] == n if kind != 2 else b < 3
+                term = (n, kind, cols[a][1], b if kind == 2 else cols[b][1])
+            elif kind == 5:
+                assert y < 3
+                term = (n, 5)
+            else:
+                assert cols[a][1] == y
+                term = (n, kind, y)
+            got.setdefault(key, []).append(term)
+            open_target = None if x >> 28 & 1 else key
+        assert open_target is None
+    want = _per_body_terms(m)
+    assert got == want
+    for key, terms in got.items():
+        assert [t[0] for t in terms] == sorted(t[0] for t in terms)
+        if key[0] == "bias" and key[1] >= 3:
+            assert [t[0] for t in terms] == [
+                n for n, c in enumerate(body_cols) if key[1] in c]
+    # balanced: no lane walks more than the mean plus the longest target
+    total = sum(len(t) for t in got.values())
+    assert nsteps <= -(-total // team) + max(len(t) for t in got.values())
+    k3 = sk.pack_topology(m, team)
+    assert np.array_equal(slen, k3[:team])
+    assert np.array_equal(sched.ravel(), k3[team:team + team * m.nj])
+
+
 @pytest.mark.parametrize("robot", ["chain1", "chain6", "chain16",
                                    "chain24"])
 @pytest.mark.parametrize("dr", [False, True])
@@ -280,8 +398,11 @@ def test_plain_substep_matches_jax_at_new_joint_counts(robot, dr):
 def test_kernel_instances_span_one_to_max_nj():
     """One instance per joint count in 1..MAX_NJ (built with its
     ``-DSUBSTEP_NJ``), none outside; the packed model and schedules of
-    every chain have the sizes of csrc/substep.cu's ``Model<NJ>`` and
-    ``Topo<NJ>`` (team of 8), with a 10-bit entry index from nj = 17."""
+    every chain have the sizes of csrc/substep.cu's ``Model<NJ>``,
+    ``Topo<NJ>`` (team of 8) and ``ShardTopo<NJ>`` (team of 32, items
+    8-byte aligned), with a 10-bit entry index from nj = 17."""
+    from legged_gym_dev_tpu_torch.sim.kinematics import _ancestor_dofs
+
     assert sk.MAX_NJ >= 24
     for nj in (0, sk.MAX_NJ + 1):
         with pytest.raises(ValueError, match="joints"):
@@ -296,6 +417,13 @@ def test_kernel_instances_span_one_to_max_nj():
         assert sk.pack_model(sim).size == model
         topo = sk.pack_topology(sim.model, 8)
         assert topo.size == 8 + 8 * nj + nb + nb * na + 1 + nb + nb * ne
+        head = 2 + 32 + 32 * nj + nb * na
+        shard, ncol, nsteps = sk.pack_shard_topology(sim.model, 32)
+        assert shard.size == head + head % 2 + 2 * (nb * (ne + na + 3)
+                                                    + 32 * nb)
+        assert 0 < nsteps * 32 <= nb * (ne + na + 3) + 32 * nb
+        assert ncol == sum(3 + len(p) for p in _ancestor_dofs(
+            sim.model.parent, nj))
         shift = sk.ent_shift(nj)
         assert shift == (10 if nv * (nv + 1) // 2 > 256 else 8) == (
             10 if nj >= 17 else 8)
