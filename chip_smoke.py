@@ -14,9 +14,9 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    on the assembled banded system; the port never calls these); the build
    report's registers, spills and shared memory per kernel are printed;
    then the same for the b=10 instances (ExtendedLateralUnicycle's staged
-   block; bt_solve at B=2048, bt_factor + bt_msolve at B=1024 with R=50),
-   with their launch shapes and the b=8 instances' times alone beside
-   them;
+   block; bt_solve at B=2048, bt_factor + bt_msolve at B=1024 with R=50;
+   bt_msolve there is ``bt_msolve_kernel_wide``), with their launch
+   shapes and waves and the b=8 instances' times alone beside them;
 4. main path, through the port's entry points, on bench.py's randomised
    ``gap`` batch: l1 at B=2048 and NN_oneshot (130->128->128->50 softplus
    MLP, random weights from a seed) at B=1024, N=50, with the
@@ -84,9 +84,11 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    ``solve_tube_batched`` at tests/test_goldens.py's bars (the runner of
    tests/test_torch_goldens.py, loaded by path); ``[plan zoo]`` the six
    ROMs (b = 5, 7, 6, 7, 8, 10) through ``solve_tube_fast_batched`` l1 at
-   B=2048, N=50, 20x10 on the kernels, and Unicycle with a random
-   131->128->128->50 NN tube at B=1024 (solves/s, feasible fraction,
-   launches per kernel and b); ``[plan cr]`` l1 at N=200 (S=201), B=1024
+   B=2048, N=50, 20x10 on the kernels, and Unicycle (b=6) and
+   ExtendedLateralUnicycle (b=10) each with a random NN tube of its ROM's
+   widths at B=1024 (solves/s, feasible fraction, launches per kernel and
+   b; each NN solve exactly 80 bt_factor and 80 bt_msolve launches);
+   ``[plan cr]`` l1 at N=200 (S=201), B=1024
    on "auto" (cyclic reduction) and "pallas" (K1 at S=201), plans within
    2e-3 of each other; ``[plan generic]`` the dense generic l2 solve at
    B=1024 beside the staged l2 solve, and the generic closed loop at
@@ -100,7 +102,8 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    ``[plan coverage]`` that net through the generic closed loop (H=75,
    N=50) with ``evaluate_tube_on_mpc_trace`` and
    ``trace_conformal_scale``; the launch counters zeroed before and read
-   after (``[launches] plan path``, every b of the zoo launched), then the
+   after (``[launches] plan path``, every b of the zoo launched, 80
+   bt_factor and 80 bt_msolve at b=10), then the
    b=10 ROM's plans on the card against the CPU at B=8 with the
    ``[tube ref]`` kink screen;
 13. robots phase (main path of the robots slice): the nine tasks the
@@ -227,7 +230,6 @@ mesh slice, ``--phases flagship`` the two flagship pipelines,
 """
 import argparse
 import concurrent.futures
-import ctypes
 import json
 import os
 import re
@@ -971,15 +973,8 @@ def substep_record(robot, dev, tag="substep", quick=False):
     nc = len(sim.model.contact_body)
     outs = [torch.empty((B_RL, n), device=dev) for n in (3, 4, nj, nv)]
     args, views = sk.substep_args(sim, st, tau, outs)
-    params, topo = sk._model_tensors(sim, dev)
-
     sk.launch(sim, args, B_RL, dev)        # builds and binds
-    fn = sk.kernel(nj).function()
-    raw = (params.data_ptr(), topo.data_ptr(), ctypes.addressof(args), nj,
-           nc, B_RL, torch.cuda.current_stream(dev).cuda_stream)
-
-    def launch():
-        fn(*raw)
+    launch = sk.raw_launch(sim, args, B_RL, dev)
 
     ms = time_ms(lambda: sk.substep(sim, st, tau), 20)
     k_ms = time_ms(launch, 20 if quick else 50)
@@ -1863,8 +1858,11 @@ def plan_goldens(dev):
 
 def plan_zoo(dev):
     """Every ROM of the zoo through ``solve_tube_fast_batched`` (l1, B=2048,
-    N=50, 20x10, the kernels), then Unicycle with the NN tube at B=1024:
-    solves/s, feasible fraction, launches per kernel and b."""
+    N=50, 20x10, the kernels), then Unicycle (b=6) and
+    ExtendedLateralUnicycle (b=10) with the NN tube at B=1024, each a
+    seeded tube MLP of its ROM's widths: solves/s, feasible fraction (no
+    bar), launches per kernel and b, the NN solves' bt_factor and
+    bt_msolve launches exactly the schedule's."""
     from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
     from legged_gym_dev_tpu_torch.solver import (
         ALConfig,
@@ -1873,7 +1871,8 @@ def plan_zoo(dev):
 
     recs = {}
     runs = [(rom, "l1", B_ZOO) for rom in ZOO] + [
-        ("Unicycle", "NN_oneshot", B_NN)]
+        ("Unicycle", "NN_oneshot", B_NN),
+        ("ExtendedLateralUnicycle", "NN_oneshot", B_NN)]
     for rom, tube, B in runs:
         n, m = ZOO[rom]
         mlp = (random_tube_mlp(H_REV + (n - 2) + (H_REV + N) * m, 1001, dev)
@@ -1893,8 +1892,11 @@ def plan_zoo(dev):
         print("[plan zoo] " + json.dumps(rec))
         check(rec["launches"]["bt_solve"] > 0, f"zoo {rom}: no bt_solve")
         if tube == "NN_oneshot":
+            want = solve_launches(cfg.outer_iters, cfg.inner_iters, 3)
             for k in ("bt_factor", "bt_msolve"):
-                check(rec["launches"][k] > 0, f"zoo {rom} NN: no {k}")
+                check(rec["launches"][k] == want[k],
+                      f"zoo {rom} NN: {k} launches {rec['launches'][k]} "
+                      f"!= {want[k]}")
         recs[f"{rom}/{tube}"] = rec
     return recs
 
@@ -2250,6 +2252,11 @@ def plan_phase(dev, mlp=None):
           f"{json.dumps(by_b)} in {time.perf_counter() - t0:.1f} s")
     for b in sorted({n + 1 + m for n, m in ZOO.values()}):
         check(by_b["bt_solve"].get(b, 0) > 0, f"plan path: no b={b} launch")
+    want = solve_launches(20, 10, 3)    # the b=10 NN solve of [plan zoo]
+    for k in ("bt_factor", "bt_msolve"):
+        check(by_b[k].get(10, 0) == want[k],
+              f"plan path: {k} b=10 launches {by_b[k].get(10, 0)} != "
+              f"{want[k]}")
     plan_zoo_reference(dev)
     return launches, by_b
 
@@ -2797,22 +2804,14 @@ def shard_turns(cases, dev):
     out = {}
     for B, (sim, st, tau) in cases.items():
         nj, nv = sim.model.nj, sim.model.nv
-        nc = len(sim.model.contact_body)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        params, topo = sk._model_tensors(sim, dev)
-        stopo, ncol, nsteps = sk._shard_topology(sim, dev)
         calls, outs = {}, {}
-        for name, fn, extra in (
-                ("K3", sk.kernel(nj).function(), (topo, ())),
-                ("shard", sk.shard_kernel(nj).function(),
-                 (stopo, (ncol, nsteps)))):
+        for name, form in (("K3", "team"), ("shard", "shard")):
             o = [torch.empty((B, n), device=dev) for n in (3, 4, nj, nv)]
             args, views = sk.substep_args(sim, st, tau, o)
-            raw = (params.data_ptr(), extra[0].data_ptr(),
-                   ctypes.addressof(args), nj, nc, B, *extra[1], stream)
 
-            def call(fn=fn, raw=raw, keep=(args, views)):
-                check(fn(*raw) == 0, "[mesh substep] a launch failed")
+            def call(launch=sk.raw_launch(sim, args, B, dev, form),
+                     keep=(args, views)):
+                launch()
 
             calls[name], outs[name] = call, o
             call()
@@ -3759,9 +3758,11 @@ def kernel_phase_b10(dev):
     shapes = {k: btk.launch_shape(k, S, b, R=N)
               for k in ("bt_solve", "bt_factor", "bt_msolve")}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for k, B in (("bt_solve", B_ZOO), ("bt_factor", B_NN)):
+    for k, B in (("bt_solve", B_ZOO), ("bt_factor", B_NN),
+                 ("bt_msolve", B_NN)):
         # waves of blocks at the zoo's batch over the card's resident ones
-        blocks = -(-B // shapes[k]["teams"])
+        blocks = -(-B // shapes[k]["teams"]) * (
+            -(-N // shapes[k]["RC"]) if k == "bt_msolve" else 1)
         shapes[k]["waves"] = blocks / (shapes[k]["blocks_per_sm"] * sms)
     print(f"[kernels] b=10 launch shapes at S={S}, R={N} ({sms} SMs): "
           + json.dumps(shapes))
@@ -3907,7 +3908,8 @@ def run_phases(phases, running):
             print(f"[build] {line.strip()}")
         for name, info in ptxas_summary(report).items():
             m = re.search(r"(bt_solve_kernel(?:_wide)?|bt_factor_kernel"
-                          r"(?:_wide)?|bt_msolve_kernel|substep_kernel"
+                          r"(?:_wide)?|bt_msolve_kernel(?:_wide)?"
+                          r"|substep_kernel"
                           r"|substep_shard_kernel)ILi(\d+)E", name)
             if m:
                 PTXAS[f"{m.group(1)}<{m.group(2)}>"] = info

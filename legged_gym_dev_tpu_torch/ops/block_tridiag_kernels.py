@@ -363,21 +363,23 @@ def _factor_args(table, rec: torch.Tensor) -> FactorArgs:
 def launch_shape(kernel: str, S: int, b: int, R: int = 1) -> dict:
     """The launch shape the CUDA source picks at these shapes: scenarios
     a block, threads a block and shared memory a block in bytes (-1 if
-    they do not fit on the current card), and bt_solve's and bt_factor's
-    entry stride ES (0 above b = ``TEAM``: the stages stream) with the
-    kernel's blocks resident on a multiprocessor of the current card, or
-    bt_msolve's columns a block RC."""
+    they do not fit on the current card), the kernel's blocks resident on
+    a multiprocessor of the current card, and bt_solve's and bt_factor's
+    entry stride ES (0 above b = ``TEAM``: the stages stream) or
+    bt_msolve's columns a block RC (above b = ``TEAM`` its records stream
+    through a ring of a few stages a scenario)."""
     lib = _build.load(SOURCE)
     x, y = ctypes.c_int(0), ctypes.c_int(0)
+    threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
     ref = ctypes.POINTER(ctypes.c_int)
     if kernel == "bt_msolve":
         fn = lib.bt_msolve_shape
-        fn.argtypes = [ctypes.c_int] * 3 + [ref, ref]
+        fn.argtypes = [ctypes.c_int] * 3 + [ref] * 3
         fn.restype = ctypes.c_int
-        nbytes = fn(S, R, b, ctypes.byref(x), ctypes.byref(y))
+        nbytes = fn(S, R, b, ctypes.byref(x), ctypes.byref(y),
+                    ctypes.byref(blocks))
         return dict(teams=y.value, threads=y.value * x.value, RC=x.value,
-                    smem_bytes=nbytes)
-    threads, blocks = ctypes.c_int(0), ctypes.c_int(0)
+                    smem_bytes=nbytes, blocks_per_sm=blocks.value)
     fn = lib.bt_team_shape
     fn.argtypes = [ctypes.c_int] * 3 + [ref] * 4
     fn.restype = ctypes.c_int

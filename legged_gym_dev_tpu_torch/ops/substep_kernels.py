@@ -574,39 +574,60 @@ def substep_args(sim, state: RobotState, tau: torch.Tensor, outs):
     return args, views
 
 
-def launch(sim, args: SubstepArgs, B: int, device) -> None:
-    """The kernel on a prepared argument struct."""
+def _call(sim, args: SubstepArgs, B: int, device, form: str):
+    """(the ``_build.Kernel``, its pointers, its ints) of one launch on a
+    prepared argument struct: ``form`` "team" (``substep_kernel``, K3) or
+    "shard" (the shard kernel, K3s)."""
+    nj, nc = sim.model.nj, len(sim.model.contact_body)
     params, topo = _model_tensors(sim, device)
-    kernel(sim.model.nj)([params.data_ptr(), topo.data_ptr(),
-                          ctypes.addressof(args)],
-                         [sim.model.nj, len(sim.model.contact_body), B],
-                         device)
-
-
-def launch_shard(sim, args: SubstepArgs, B: int, device) -> None:
-    """The shard kernel on a prepared argument struct."""
-    params, _ = _model_tensors(sim, device)
+    if form == "team":
+        return kernel(nj), [params.data_ptr(), topo.data_ptr(),
+                            ctypes.addressof(args)], [nj, nc, B]
     topo, ncol, nsteps = _shard_topology(sim, device)
-    shard_kernel(sim.model.nj)(
-        [params.data_ptr(), topo.data_ptr(), ctypes.addressof(args)],
-        [sim.model.nj, len(sim.model.contact_body), B, ncol, nsteps],
-        device)
+    return shard_kernel(nj), [params.data_ptr(), topo.data_ptr(),
+                              ctypes.addressof(args)], [nj, nc, B, ncol,
+                                                        nsteps]
+
+
+def launch(sim, args: SubstepArgs, B: int, device, form="team") -> None:
+    """One kernel on a prepared argument struct, counted: ``form`` "team"
+    or "shard" (as ``_call``)."""
+    k, ptrs, ints = _call(sim, args, B, device, form)
+    k(ptrs, ints, device)
+
+
+def raw_launch(sim, args: SubstepArgs, B: int, device, form="team"):
+    """A function that launches one kernel on a prepared argument struct
+    through its bound C function, on the current stream, without the
+    wrapper's checks and without counting (for timing a kernel alone):
+    ``form`` "team" (what ``substep`` launches) or "shard" (what
+    ``substep_shard`` launches). The caller keeps ``args`` and its views
+    alive."""
+    k, ptrs, ints = _call(sim, args, B, device, form)
+    fn = k.function()
+    raw = (*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
+
+    def call():
+        err = fn(*raw)
+        if err:
+            raise RuntimeError(f"{k.symbol} launch failed: CUDA error {err}")
+    return call
 
 
 def substep(sim, state: RobotState, tau: torch.Tensor) -> RobotState:
     """One physics substep: the kernel on CUDA tensors, the plain version
     on CPU tensors."""
-    return _substep(sim, state, tau, launch)
+    return _substep(sim, state, tau, "team")
 
 
 def substep_shard(sim, state: RobotState, tau: torch.Tensor) -> RobotState:
     """One shard's physics substep: the shard kernel (K3s) on CUDA
     tensors, equal to ``substep``'s bit for bit; the plain version on CPU
     tensors."""
-    return _substep(sim, state, tau, launch_shard)
+    return _substep(sim, state, tau, "shard")
 
 
-def _substep(sim, state, tau, launch_fn) -> RobotState:
+def _substep(sim, state, tau, form) -> RobotState:
     dev = state.base_pos.device
     if dev.type == "cpu":
         return substep_plain(sim, state, tau)
@@ -622,7 +643,7 @@ def _substep(sim, state, tau, launch_fn) -> RobotState:
     outs = [torch.empty((B, n), dtype=torch.float32, device=dev)
             for n in (3, 4, nj, nv)]
     args, _views = substep_args(sim, state, tau, outs)
-    launch_fn(sim, args, B, dev)
+    launch(sim, args, B, dev, form)
     return RobotState(*outs)
 
 

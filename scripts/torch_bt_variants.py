@@ -5,8 +5,8 @@ Builds variants of ``legged_gym_dev_tpu_torch/csrc/block_tridiag.cu``
 (one ``nvcc`` each, all at once, into ``build/bt_variants/``), each cut
 after one phase of a kernel or with one constant changed, at one block
 size (``--b``, 5 or 10), and times ``bt_solve`` at B=2048, ``bt_factor`` at
-B=1024 and (b=5) ``bt_msolve`` at B=1024, R=50 (S=51, the main path's
-shapes) with each: CUDA events over 50 launches, and the device time of
+B=1024 and ``bt_msolve`` at B=1024, R=50 (S=51, the main path's shapes)
+with each: CUDA events over 50 launches, and the device time of
 20 launches queued behind a sleep kernel (``chip_smoke.device_ms``). A
 phase's time is the difference between two cuts. Then ``bt_solve`` and
 ``bt_factor`` as they are at B = 256 to 8192. Inputs are
@@ -44,6 +44,24 @@ Variants at b=10 (the streamed kernels, 16 lanes a scenario):
                      is L1; the copies go through L1, where a 128-byte line
                      holds 32 stages of a row)
   teams4             four scenarios (two warps) a block instead of two
+  ms_fwd_only        bt_msolve_kernel_wide returns after the forward sweep
+  ms_loads_only      bt_msolve_kernel_wide streams its records and loads
+                     and stores x but skips each stage's arithmetic (a
+                     guard false at run time)
+  ms_chunk2/8        its chunks of copies of 2 or 8 stages instead of 4
+  ms_buf3            rings of 3 chunks (copies two chunks ahead) instead
+                     of 2
+  ms_blocks1/3       __launch_bounds__ asking for 1 or 3 blocks an SM
+                     instead of 2 (255 or 85 registers a thread)
+  ms_csm             the triangular solves reading the factor from the
+                     ring slot instead of registers
+  ms_csm_chunk2_blocks3  ms_csm with chunks of 2 stages and 3 blocks an SM
+  ms_resident3/4     at most 3 or 4 scenarios a block and one block an SM
+                     (no register cap): 396 or 528 scenarios in flight, so
+                     their forward values may stay in L2 for the backward
+                     sweep
+  ms_teams1/3/4/8    at most 1, 3, 4 or 8 scenarios a block instead of 2
+                     (8: 5 at R=50)
 At b=10 the script first holds the source's ``pivot_inv`` against
 ``__frcp_rn(sqrtf(max(a, 1e-12)))`` bit for bit on all 2^32 floats (NaN
 matching NaN) and stops on a mismatch.
@@ -56,11 +74,15 @@ and at both:
                      ``bt_solve`` is timed; at b=10 its ``bt_solve`` and
                      ``bt_factor`` at S=51 and S=201, in turns with base's
                      (baseline, base, base, baseline), and base's outputs
-                     are held against its bit for bit. The script says
-                     whether every ``bt_solve_kernel`` and
-                     ``bt_factor_kernel`` instance up to b=8 and every
-                     ``bt_msolve_kernel`` instance compile to the same SASS
-                     in both.
+                     are held against its bit for bit; at b=10 also its
+                     ``bt_msolve`` (``bt_msolve_kernel<10>``) at B=1024,
+                     R=50, S=51, in turns with base's
+                     (``bt_msolve_kernel_wide<10>``), outputs bit for bit
+                     on the same records. The script says whether every
+                     ``bt_solve_kernel``, ``bt_factor_kernel`` and
+                     ``bt_msolve_kernel`` instance up to b=8 and the b=10
+                     ``bt_solve_kernel_wide`` and ``bt_factor_kernel_wide``
+                     compile to the same SASS in both.
 
 Usage: ``python3 scripts/torch_bt_variants.py [--b 10] [--baseline FILE]``
 (needs nvcc and a card). The interface of ``bt_solve``'s argument struct
@@ -87,11 +109,13 @@ from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk  # noqa: E
 
 S = 51
 OUT = ROOT / "build" / "bt_variants"
-SASS_KERNELS = ([f"bt_solve_kernelILi{b}E" for b in btk.SUPPORTED_B
-                 if b <= btk.TEAM]
-                + [f"bt_factor_kernelILi{b}E" for b in btk.SUPPORTED_B
-                   if b <= btk.TEAM]
-                + [f"bt_msolve_kernelILi{b}E" for b in btk.SUPPORTED_B])
+SASS_KERNELS = ([f"{k}ILi{b}E" for k in ("bt_solve_kernel",
+                                          "bt_factor_kernel",
+                                          "bt_msolve_kernel")
+                 for b in btk.SUPPORTED_B if b <= btk.TEAM]
+                + [f"{k}ILi{b}E" for k in ("bt_solve_kernel_wide",
+                                           "bt_factor_kernel_wide")
+                   for b in btk.SUPPORTED_B if b > btk.TEAM])
 
 
 def only_b(src, b):
@@ -161,6 +185,48 @@ def carveout(src, pct):
     return src
 
 
+def ms_loads_only(base):
+    """bt_msolve_kernel_wide without each stage's arithmetic: the L
+    products and the two triangular solves behind a guard false at run
+    time (the forward values still go through x)."""
+    start = base.index("bt_msolve_kernel_wide(const float*")
+    head, body = base[:start], base[start:]
+    body = replace(body, "      if (k > 0) {  // L_{k-1} y_{k-1}",
+                   "      if (k > 0 && S < 0) {  // L_{k-1} y_{k-1}")
+    body = replace(body, "#pragma unroll\n      for (int q = 0; q < BBp / 4; ++q) {",
+                   "#pragma unroll\n      for (int q = 0; q < (S < 0 ? BBp / 4 : 0); ++q) {")
+    body = replace(body, "      cho_solve_rp<b>(c, rp, r);",
+                   "      if (S < 0) cho_solve_rp<b>(c, rp, r);")
+    return head + body
+
+
+def ms_factor_in_smem(base):
+    """bt_msolve_kernel_wide's triangular solves reading each stage's
+    factor from its ring slot (shared memory) instead of a copy in
+    registers: the same expressions on the same values."""
+    return replace(base, """      float c[NLp], rp[Bp];
+      lds4<NLp>(st, c);
+      lds4<Bp>(st + NLp + BBp, rp);
+      cho_solve_rp<b>(c, rp, r);""", """      float rp[Bp];
+      lds4<Bp>(st + NLp + BBp, rp);
+      cho_solve_rp<b>(*reinterpret_cast<const float(*)[NLp]>(st), rp, r);""")
+
+
+def ms_resident(base, teams):
+    """bt_msolve_kernel_wide with at most ``teams`` scenarios a block and
+    one block an SM (its shared memory padded to 116 KB, no register cap):
+    fewer scenarios in flight, so that the forward values they write to x
+    may stay in the 50 MB L2 until the backward sweep reads them back."""
+    text = replace(replace(base, "constexpr int kMsTeams = 2;",
+                           f"constexpr int kMsTeams = {teams};"),
+                   "constexpr int kMsBlocks = 2;",
+                   "constexpr int kMsBlocks = 1;")
+    line = ("    *bytes = ((size_t)*teams * (ring + (48 - ring % 32) % 32) "
+            "+ values) * 4;\n")
+    return replace(text, line,
+                   line + "    if (*bytes < 116 * 1024) *bytes = 116 * 1024;\n")
+
+
 def variants_b10(src):
     base = only_b(src, 10)
     return {
@@ -179,6 +245,26 @@ def variants_b10(src):
                         "constexpr int kBuf = 4;"),
         **{f"carve{c}": carveout(base, c) for c in (50, 60, 100)},
         "fast_recip": fast_recip(base),
+        "ms_fwd_only": cut(base, "  // 2. backward: x_k = y_k - S_k^{-1}"),
+        "ms_loads_only": ms_loads_only(base),
+        "ms_chunk2": replace(base, "constexpr int kMsChunk = 4;",
+                             "constexpr int kMsChunk = 2;"),
+        "ms_chunk8": replace(base, "constexpr int kMsChunk = 4;",
+                             "constexpr int kMsChunk = 8;"),
+        "ms_buf3": replace(base, "constexpr int kMsBuf = 2;",
+                           "constexpr int kMsBuf = 3;"),
+        **{f"ms_blocks{n}": replace(
+            base, "constexpr int kMsBlocks = 2;",
+            f"constexpr int kMsBlocks = {n};") for n in (1, 3)},
+        "ms_csm": ms_factor_in_smem(base),
+        "ms_csm_chunk2_blocks3": ms_factor_in_smem(replace(
+            replace(base, "constexpr int kMsChunk = 4;",
+                    "constexpr int kMsChunk = 2;"),
+            "constexpr int kMsBlocks = 2;", "constexpr int kMsBlocks = 3;")),
+        **{f"ms_resident{t}": ms_resident(base, t) for t in (3, 4)},
+        **{f"ms_teams{t}": replace(base, "constexpr int kMsTeams = 2;",
+                                   f"constexpr int kMsTeams = {t};")
+           for t in (1, 3, 4, 8)},
     }
 
 
@@ -320,6 +406,8 @@ class Problem:
         self.fargs, self.rec, self.rargs, self.xo = \
             btk.prepare_multirhs_entries(Df, Lf, cols, b)
         self.rec_plain = btk.factor_records_plain(Df, Lf, b, Bf, S_)
+        self.xo_plain = torch.stack(
+            btk.block_tridiag_multirhs_entries_plain(Df, Lf, cols, b))
         # the tables hold raw pointers: the inputs live as long as they do
         self.inputs = (solve_inputs, (Df, Lf, cols))
 
@@ -335,14 +423,15 @@ class Problem:
                 self.xo.data_ptr(), S_, self.Bf, self.R, b, stream)}
 
     def outputs(self, lib, stream):
-        """(x, records) of one bt_solve and one bt_factor launch of lib."""
+        """(x, records, multi-RHS x) of one bt_solve, one bt_factor and one
+        bt_msolve launch of lib."""
         calls = self.calls(lib, stream)
-        for k in ("bt_solve", "bt_factor"):
+        for k in ("bt_solve", "bt_factor", "bt_msolve"):
             err = calls[k]()
             if err:
                 raise RuntimeError(f"{k} failed: CUDA error {err}")
         torch.cuda.synchronize()
-        return self.x.clone(), self.rec.clone()
+        return self.x.clone(), self.rec.clone(), self.xo.clone()
 
 
 def timed(call):
@@ -395,11 +484,7 @@ def main():
             raise RuntimeError("pivot_inv is not the library's rounding")
     prob = Problem(b, S, 2048, 1024, 50, dev)
     base = libs["base"][0]
-    x, r = prob.outputs(base, stream)
-    err = {"bt_solve": float((x - prob.x_plain).abs().max()
-                             / prob.x_plain.abs().max()),
-           "bt_factor": float((r - prob.rec_plain).abs().max()
-                              / prob.rec_plain.abs().max())}
+    err = rel_errs(prob, prob.outputs(base, stream))
     print(f"base against the plain versions at S={S}: rel err "
           f"{json.dumps(err)}", flush=True)
     if not max(err.values()) <= 1e-4:
@@ -408,18 +493,11 @@ def main():
 
     for name, (lib, _) in libs.items():
         if name != "baseline":
-            x, r = prob.outputs(lib, stream)
-            rec[name]["rel_err"] = {
-                "bt_solve": float((x - prob.x_plain).abs().max()
-                                  / prob.x_plain.abs().max()),
-                "bt_factor": float((r - prob.rec_plain).abs().max()
-                                   / prob.rec_plain.abs().max())}
+            rec[name]["rel_err"] = rel_errs(prob,
+                                            prob.outputs(lib, stream))
         calls = prob.calls(lib, stream)
-        if name == "baseline":
-            calls = {"bt_solve": calls["bt_solve"]} if b == 5 else {
-                k: calls[k] for k in ("bt_solve", "bt_factor")}
-        elif b == 10:
-            calls.pop("bt_msolve")
+        if name == "baseline" and b == 5:
+            calls = {"bt_solve": calls["bt_solve"]}
         for kernel, call in calls.items():
             rec[name][kernel] = timed(call)
         print(f"{name:16s} " + "   ".join(
@@ -448,30 +526,47 @@ def main():
     return 0
 
 
+def rel_errs(prob, outs):
+    """Each kernel's max relative error against its plain version."""
+    return {k: float((got - ref).abs().max() / ref.abs().max())
+            for k, got, ref in zip(("bt_solve", "bt_factor", "bt_msolve"),
+                                   outs, (prob.x_plain, prob.rec_plain,
+                                          prob.xo_plain))}
+
+
 def in_turns(libs, dev, stream):
-    """b=10: baseline and base at S=51 and S=201, timed in turns
-    (baseline, base, base, baseline), base's outputs against baseline's bit
-    for bit."""
+    """b=10: baseline and base at S=51 (bt_msolve at R=50) and S=201
+    (R=7), timed in turns (baseline, base, base, baseline), base's outputs
+    against baseline's bit for bit (bt_msolve on the same records)."""
     out = {}
-    for S_ in (S, 201):
-        prob = Problem(10, S_, 2048, 1024, 1, dev)
+    for S_, R in ((S, 50), (201, 7)):
+        prob = Problem(10, S_, 2048, 1024, R, dev)
         got = prob.outputs(libs["base"][0], stream)
         ref = prob.outputs(libs["baseline"][0], stream)
-        same = [bool(torch.equal(g, r)) for g, r in zip(got, ref)]
-        err = float((got[0] - prob.x_plain).abs().max()
-                    / prob.x_plain.abs().max())
+        same = [bool(torch.equal(g, r)) for g, r in zip(got[:2], ref[:2])]
+        # both bt_msolve kernels on the same records (baseline's factor's)
+        xs = []
+        for name in ("base", "baseline"):
+            if prob.calls(libs[name][0], stream)["bt_msolve"]():
+                raise RuntimeError(f"{name} bt_msolve failed")
+            torch.cuda.synchronize()
+            xs.append(prob.xo.clone())
+        same.append(bool(torch.equal(xs[0], xs[1])))
+        err = rel_errs(prob, got)
         runs = []
         for name in ("baseline", "base", "base", "baseline"):
             calls = prob.calls(libs[name][0], stream)
-            runs.append((name, {k: timed(calls[k])
-                                for k in ("bt_solve", "bt_factor")}))
-        out[S_] = dict(same_x=same[0], same_records=same[1], rel_err=err,
-                       runs=runs)
-        print(f"in turns at S={S_} (bt_solve B=2048, bt_factor B=1024): "
+            runs.append((name, {k: timed(calls[k]) for k in calls}))
+        out[S_] = dict(same_x=same[0], same_records=same[1],
+                       same_msolve=same[2], rel_err=err, runs=runs)
+        print(f"in turns at S={S_} (bt_solve B=2048, bt_factor and "
+              f"bt_msolve B=1024, R={R}): "
               + "; ".join(f"{n} solve {fmt(t['bt_solve'])}, factor "
-                          f"{fmt(t['bt_factor'])}" for n, t in runs)
+                          f"{fmt(t['bt_factor'])}, msolve "
+                          f"{fmt(t['bt_msolve'])}" for n, t in runs)
               + f"; base equals baseline bit for bit: x {same[0]}, records "
-              f"{same[1]}; base rel err {err:.3e}", flush=True)
+              f"{same[1]}, msolve {same[2]}; base rel err "
+              f"{json.dumps(err)}", flush=True)
     return out
 
 

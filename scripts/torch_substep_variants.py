@@ -66,22 +66,36 @@ B=1024 (one shard of the 4-shard mesh), on the same robots:
                           (nj4_team8) on the 4-joint robot
 then K3 and the shard kernel of the source in turns (K3, shard, shard,
 K3) at B=1024 and 4096, both across batches, and shard32_subst0 at B=2048
-and 4096. Each time is the device
-time a launch of 20 launches queued behind a sleep (``chip_smoke.
-device_ms``); each variant's outputs are checked against K3's (bit for
-bit, cuts excepted). It first holds ``pivot_fast`` against the library's
-``sqrtf(max(a, 1e-12))`` and ``1.0f / d`` on all 2^32 floats; with
-``--baseline FILE`` it also compiles
-``substep_kernel`` at every joint count 1-24 from FILE and from the source
-(``nvcc -cubin``) and says whether each instance has the same SASS.
+and 4096.
+
+``--nj10``: K3 at nj=10, on the Adam stand-in (``biped10``, two legs of
+five joints): the library's two forms of it, ``substep_kernel<10>`` (the
+8-lane team, what ``substep`` launches) and the shard kernel, in turns
+(team, shard, shard, team) at B=1024, 2048 and 4096, held to each other
+bit for bit, with the shard kernel's launch shape and waves; then at
+B=4096 the team kernel (nj10) and its cuts after the copies, FK, the mass
+matrix and the factor (nj10_<cut>), and what each phase costs.
+``--racecheck``: ``compute-sanitizer --tool racecheck`` and ``--tool
+synccheck`` on one K3 launch at B=64 on the 4-joint hopper and the
+quadruped, with ``--baseline FILE``'s source and with the source (one
+process each; the output's summaries under ``build/substep_variants/``).
+
+Each time is the device time a launch of 20 launches queued behind a
+sleep (``chip_smoke.device_ms``); each variant's outputs are checked
+against K3's (bit for bit, cuts excepted). It first holds ``pivot_fast``
+against the library's ``sqrtf(max(a, 1e-12))`` and ``1.0f / d`` on all
+2^32 floats; with ``--baseline FILE`` it also compiles ``substep_kernel``
+and ``substep_shard_kernel`` at every joint count 1-24 from FILE and from
+the source (``nvcc -cubin``) and says whether each instance has the same
+SASS.
 
 Usage: ``python3 scripts/torch_substep_variants.py [--only a,b]
-[--one-thread FILE] [--baseline FILE] [--shard]`` (needs nvcc and a card;
-``--only`` keeps the variants whose names start with one of the given
-prefixes). Write the one-thread kernel's file beforehand, from a checkout
-with its history: ``git show 75c82da:legged_gym_dev_tpu_torch/csrc/
-substep.cu > build/substep_one_thread.cu``; the baseline likewise from the
-commit to compare with.
+[--one-thread FILE] [--baseline FILE] [--shard | --nj10 | --racecheck]``
+(needs nvcc and a card; ``--only`` keeps the variants whose names start
+with one of the given prefixes). Write the one-thread kernel's file
+beforehand, from a checkout with its history: ``git show 75c82da:
+legged_gym_dev_tpu_torch/csrc/substep.cu > build/substep_one_thread.cu``;
+the baseline likewise from the commit to compare with.
 """
 import argparse
 import concurrent.futures
@@ -168,7 +182,8 @@ def build(item):
     name, text = item
     src, lib = OUT / f"{name}.cu", OUT / f"{name}.so"
     src.write_text(text)
-    nj = 4 if name.startswith("nj4_") else 12
+    nj = 4 if name.startswith("nj4_") else 10 if name.startswith(
+        "nj10") else 12
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
                            f"-DSUBSTEP_NJ={nj}", "-o", str(lib), str(src)],
                           capture_output=True, text=True)
@@ -388,8 +403,9 @@ def sass_of(path, kernel):
 
 
 def sass_check(baseline):
-    """``substep_kernel`` at every joint count from ``baseline`` and from
-    the source (one ``nvcc -cubin`` each, all at once): {nj: same SASS}."""
+    """``substep_kernel`` and ``substep_shard_kernel`` at every joint count
+    from ``baseline`` and from the source (one ``nvcc -cubin`` each, all at
+    once): {kernel: {nj: same SASS}}."""
     texts = {"baseline": Path(baseline).read_text(),
              "base": (_build.CSRC / sk.SOURCE).read_text()}
     for name, text in texts.items():
@@ -404,14 +420,16 @@ def sass_check(baseline):
                         f"-DSUBSTEP_NJ={nj}", "-o", str(path),
                         str(OUT / f"sass_{name}.cu")], check=True,
                        capture_output=True)
-        return job, sass_of(path, "substep_kernel")
+        return job, {k: sass_of(path, k) for k in ("substep_kernel",
+                                                   "substep_shard_kernel")}
 
     jobs = [(name, nj) for nj in range(1, sk.MAX_NJ + 1) for name in texts]
     with concurrent.futures.ThreadPoolExecutor() as pool:
         got = dict(pool.map(cubin, jobs))
-    return {nj: bool(got["base", nj]) and got["base", nj] == got["baseline",
-                                                               nj]
-            for nj in range(1, sk.MAX_NJ + 1)}
+    return {k: {nj: bool(got["base", nj][k])
+                and got["base", nj][k] == got["baseline", nj][k]
+                for nj in range(1, sk.MAX_NJ + 1)}
+            for k in ("substep_kernel", "substep_shard_kernel")}
 
 
 class ShardCase:
@@ -553,6 +571,155 @@ def shard_main(opts, only, card):
     return 0
 
 
+# --nj10: K3 at nj=10, the team kernel's phase cuts
+def nj10_variants():
+    src = (_build.CSRC / sk.SOURCE).read_text()
+    out = {"nj10": src}
+    for name, anchor in CUTS.items():
+        if anchor not in src:
+            raise RuntimeError(f"anchor not in the source: {anchor!r}")
+        out[f"nj10_{name}"] = src.replace(anchor,
+                                          "  if (B > 0) return;\n" + anchor)
+    return out
+
+
+def shard_shape(lib, nj, ncol, nsteps):
+    """The shard kernel's launch shape from a library's
+    ``substep_shard_shape``."""
+    fn = lib.substep_shard_shape
+    ref = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [ctypes.c_int] * 3 + [ref] * 7
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(7)]
+    if fn(nj, ncol, nsteps, *(ctypes.byref(x) for x in out)):
+        raise RuntimeError("substep_shard_shape failed")
+    return dict(zip(("team", "envs", "threads", "smem_bytes",
+                     "blocks_per_sm", "registers", "local_bytes"),
+                    (x.value for x in out)), columns=ncol, steps=nsteps)
+
+
+def nj10_main(only, card):
+    """K3 at nj=10: the library's two forms in turns, then the team
+    kernel's phase cuts."""
+    rec = {"card": card}
+    todo = {k: v for k, v in nj10_variants().items()
+            if k == "nj10" or not only or any(k.startswith(x) for x in only)}
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        libs = dict(pool.map(build, todo.items()))
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    robot, base = "biped10", libs["nj10"][0]
+    base.substep_shard_team.restype = ctypes.c_int
+    for Bt in (1024, 2048, 4096):
+        c = ShardCase(robot, Bt, dev)
+        calls = {f: c.call(base, f == "shard") for f in ("team", "shard")}
+        for call, _ in calls.values():
+            call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(calls["team"][1],
+                                                     calls["shard"][1])):
+            raise RuntimeError(f"B={Bt}: the shard kernel differs from K3")
+        turns = [[f, dev_time(calls[f][0])]
+                 for f in ("team", "shard", "shard", "team")]
+        _, ncol, nsteps = sk.pack_shard_topology(c.sim.model,
+                                                 base.substep_shard_team(10))
+        shape = shard_shape(base, 10, ncol, nsteps)
+        shape["waves"] = -(-Bt // shape["envs"]) / (shape["blocks_per_sm"]
+                                                     * sms)
+        rec[f"B{Bt}"] = dict(turns=turns, shard_shape=shape)
+        print(f"biped10 B={Bt} in turns: " + ", ".join(
+            f"{n} {ms:.4f}" for n, ms in turns) + "; shard shape "
+            + json.dumps(shape), flush=True)
+    c = ShardCase(robot, 4096, dev)
+    team_call, team_out = c.call(base, False)
+    team_call()
+    res = rec.setdefault("variants", {})
+    for name, (lib, regs) in libs.items():
+        call, outs = c.call(lib, False)
+        call()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(outs, team_out))
+        if name == "nj10" and not same:
+            raise RuntimeError(f"{name}: outputs differ from K3's")
+        res[name] = dict(ms=dev_time(call), ptxas=regs,
+                         equal_to_k3=same if name == "nj10" else None)
+        print(f"biped10 B=4096 {name:12s} {res[name]['ms']:.4f} ms "
+              + json.dumps({k: regs.get(k) for k in
+                            ("registers", "spill_stores", "smem_bytes")}),
+              flush=True)
+    # what each phase costs: the difference between two cuts
+    steps, last = {}, 0.0
+    for n in [f"nj10_{k}" for k in CUTS] + ["nj10"]:
+        if n in res:
+            steps[n] = res[n]["ms"] - last
+            last = res[n]["ms"]
+    rec["nj10_phases"] = steps
+    print("biped10 nj10 phases (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in steps.items()), flush=True)
+    print(json.dumps({"card": card, "nj10": rec}))
+    return 0
+
+
+RACE_ROBOTS = {4: "hopper4", 12: "quadruped"}
+
+
+def launch_once(path, nj):
+    """One K3 launch of the library at ``path`` (built for nj joints) at
+    B=64 on that joint count's test robot, synchronised (the process
+    compute-sanitizer watches)."""
+    lib = ctypes.CDLL(str(path))
+    c = ShardCase(RACE_ROBOTS[nj], 64, torch.device("cuda"))
+    call, outs = c.call(lib, False)
+    call()
+    torch.cuda.synchronize()
+    print("launched", path, nj, bool(torch.isfinite(outs[3]).all()))
+    return 0
+
+
+def racecheck(baseline, card):
+    """compute-sanitizer's racecheck and synccheck on one K3 launch at nj=4
+    and 12, the baseline's source and the source: each tool's summary."""
+    texts = {"baseline": Path(baseline).read_text(),
+             "base": (_build.CSRC / sk.SOURCE).read_text()}
+    jobs = [(f"race_{name}_nj{nj}", text, nj)
+            for name, text in texts.items() for nj in RACE_ROBOTS]
+
+    def compile_(job):
+        name, text, nj = job
+        src, lib = OUT / f"{name}.cu", OUT / f"{name}.so"
+        src.write_text(text)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                        f"-DSUBSTEP_NJ={nj}", "-o", str(lib), str(src)],
+                       check=True, capture_output=True)
+        return lib
+
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        built = list(pool.map(compile_, jobs))
+    sanitizer = Path(_build._nvcc()).with_name("compute-sanitizer")
+    rec = {"card": card}
+    for (name, _, nj), lib in zip(jobs, built):
+        for tool in ("racecheck", "synccheck"):
+            cmd = [str(sanitizer), "--tool", tool, sys.executable,
+                   str(Path(__file__).resolve()), "--launch-once", str(lib),
+                   "--nj", str(nj)]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True,
+                                      timeout=150)
+                text, rc = proc.stdout + proc.stderr, proc.returncode
+            except (OSError, subprocess.TimeoutExpired) as err:
+                text, rc = repr(err), None
+            log = OUT / f"{name}_{tool}.log"
+            log.write_text(text)
+            summary = [line for line in text.splitlines()
+                       if "SUMMARY" in line or "hazard" in line.lower()
+                       or "launched" in line or "rror" in line][-6:]
+            rec[f"{name}_{tool}"] = dict(rc=rc, summary=summary)
+            print(f"{name} {tool}: rc {rc}; " + " | ".join(summary),
+                  flush=True)
+    print(json.dumps({"racecheck": rec}))
+    return 0
+
+
 def device_ms(call):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(20):
@@ -570,18 +737,34 @@ def main():
     ap.add_argument("--one-thread", default=None)
     ap.add_argument("--baseline", default=None)
     ap.add_argument("--shard", action="store_true")
+    ap.add_argument("--nj10", action="store_true")
+    ap.add_argument("--racecheck", action="store_true")
+    ap.add_argument("--launch-once", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--nj", type=int, default=12, help=argparse.SUPPRESS)
     opts = ap.parse_args()
     only = [x for x in opts.only.split(",") if x]
     if not torch.cuda.is_available():
         print("torch_substep_variants: no CUDA device", file=sys.stderr)
         return 2
+    if opts.launch_once:
+        return launch_once(opts.launch_once, opts.nj)
     OUT.mkdir(parents=True, exist_ok=True)
-    if opts.shard:
+    if opts.shard or opts.nj10 or opts.racecheck:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True,
                               text=True).stdout.strip()
         print(card, flush=True)
+        if opts.racecheck:
+            if opts.baseline is None:
+                ap.error("--racecheck needs --baseline FILE")
+            return racecheck(opts.baseline, card)
+        if opts.nj10:
+            return nj10_main(only, card)
         return shard_main(opts, only, card)
+    if opts.baseline is not None:
+        same = sass_check(opts.baseline)
+        print("SASS, source against baseline: " + json.dumps(same),
+              flush=True)
     todo = {k: v for k, v in variants(opts.one_thread, opts.baseline).items()
             if not only or any(k.startswith(x) for x in only)}
     with concurrent.futures.ThreadPoolExecutor() as pool:

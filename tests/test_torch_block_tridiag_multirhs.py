@@ -22,8 +22,12 @@ ATOL = 3e-5
 @pytest.mark.parametrize("B,S,b,R", [(8, 12, 5, 7), (16, 51, 5, 11),
                                      (4, 6, 3, 5), (4, 6, 6, 3),
                                      (4, 6, 7, 5), (4, 6, 8, 3),
-                                     (4, 7, 10, 5), (2, 51, 10, 3)])
+                                     (4, 7, 10, 5), (2, 51, 10, 3),
+                                     (2, 51, 10, 50)])
 def test_multirhs_plain_matches_pallas(B, S, b, R):
+    """The plain version against JAX's kernel in interpret mode, up to
+    b=10 at the main path's S=51 and R=50 (the plain version the CUDA
+    kernels at b=10 are held to on the card)."""
     D, L, rhs = make_systems(B, S, b, R, seed=B + 100)
     Dj, Lj = entry_lists(D, L, jnp.asarray)
     x_ref = block_tridiag_multirhs_pallas_entries(

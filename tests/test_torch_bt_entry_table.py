@@ -157,6 +157,34 @@ def test_rhs_table_matches_stacked_columns():
         assert torch.equal(view, c)
 
 
+def test_msolve_tables_at_b10_stream_whole_float4_records():
+    """What bt_msolve_kernel_wide reads at b=10: bt_factor's stage records
+    whole float4s a part (the factor 55 padded to 56, L_k 100, 1 / c_jj 10
+    padded to 12: 42 float4s a record, which its ring copies 16 bytes at a
+    time, a forward slot taking L_{k-1} from the record before), and the
+    right-hand-side table of R=50 columns at S=51 read in place, as at
+    b=5."""
+    assert btk.record_layout(10) == (56, 100, 12, 168)
+    B, S, R, b = 2, 51, 50, 10
+    (Df, Lf, cols), _ = special_entries(B, S, b, R, seed=6)
+    args = btk.rhs_table(cols, b, B, S, R, CPU)
+    assert any(not isinstance(c, torch.Tensor) for c in cols)
+    for i, c in enumerate(cols):
+        if not isinstance(c, torch.Tensor):
+            assert args.ptr[i] is None
+            continue
+        st = c.untyped_storage()
+        base = torch.tensor([], dtype=torch.float32).set_(st)
+        view = torch.as_strided(base, (B, S, R),
+                                (args.sb[i], args.ss[i], args.sr[i]),
+                                (args.ptr[i] - st.data_ptr()) // 4)
+        assert torch.equal(view, c.expand(B, S, R))
+    rec = btk.factor_records_plain(Df, Lf, b, B, S)
+    assert rec.shape == (B, S, 168) and rec.stride() == (S * 168, 168, 1)
+    assert not rec[..., 55:56].any() and not rec[..., 166:].any()
+    assert not rec[:, S - 1, 56:156].any()
+
+
 def test_solve_args_pack_the_table_and_output_view():
     """The ctypes struct the kernel takes by value: pointers (None where
     null), strides, and the (b, B, S) output view the entry form unbinds."""

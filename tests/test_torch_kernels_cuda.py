@@ -604,12 +604,13 @@ def test_substep_shard_equals_k3_every_joint_count_on_card(card, nj):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("robot", ["quadruped", "hopper4", "hopper"])
+@pytest.mark.parametrize("robot", ["quadruped", "hopper4", "hopper",
+                                   "biped10"])
 @pytest.mark.parametrize("B", [1, 1000, 1023, 1024, 4096])
 def test_substep_shard_equals_k3_on_card(card, robot, B):
-    """The shard kernel on the test robots with per-env DR rows, at the
-    mesh's shard batch (1024), the whole batch and ragged batches: K3's
-    outputs bit for bit."""
+    """The shard kernel on the test robots (biped10: the Adam stand-in's
+    nj=10) with per-env DR rows, at the mesh's shard batch (1024), the
+    whole batch and ragged batches: K3's outputs bit for bit."""
     rc = robot_cases()
     inp = rc.substep_inputs(robot, B, seed=B + 1, dr=True)
     sim = rc.torch_sim(robot, card, inp)
@@ -620,7 +621,7 @@ def test_substep_shard_equals_k3_on_card(card, robot, B):
 @pytest.mark.parametrize("payload", [False, True])
 @pytest.mark.parametrize("form", ["scalar", "per_sphere", "B1", "B11",
                                   "Bnc"])
-@pytest.mark.parametrize("robot", ["quadruped", "hopper4"])
+@pytest.mark.parametrize("robot", ["quadruped", "hopper4", "biped10"])
 def test_substep_shard_views_and_dr_forms_on_card(card, robot, form,
                                                   payload):
     """The shard kernel reading strided state views and each DR broadcast
@@ -636,7 +637,7 @@ def test_substep_shard_views_and_dr_forms_on_card(card, robot, form,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("robot", ["quadruped", "hopper4"])
+@pytest.mark.parametrize("robot", ["quadruped", "hopper4", "biped10"])
 def test_substep_shard_keeps_nan_on_card(card, robot):
     """A NaN env stays NaN through the shard kernel, as through K3, and
     the other envs stay finite."""
@@ -647,3 +648,93 @@ def test_substep_shard_keeps_nan_on_card(card, robot):
     out = shard_against_k3(sim, *rc.torch_state(inp, card))
     finite = torch.isfinite(out.v).all(-1).cpu()
     assert not bool(finite[5]) and int(finite.sum()) == 1023
+
+
+# ---------------------------------------------------------------------------
+# K2s at b=10: bt_msolve_kernel_wide (what bt_msolve launches there)
+# ---------------------------------------------------------------------------
+
+def msolve_b10(card, B, S, R, seed, nan_at=None):
+    """bt_factor + bt_msolve at b=10 through the multi-RHS wrapper and the
+    plain version on the same systems: (x, x_plain), each (b, B, S, R)."""
+    D, L, rhs = make_systems(B, S, 10, R, seed=seed)
+    if nan_at is not None:
+        D[nan_at] = np.nan
+    Dt, Lt = entry_lists(D, L, lambda a: torch.as_tensor(a, device=card))
+    cols = [torch.as_tensor(rhs[:, :, i, :], device=card) for i in range(10)]
+    btk.reset_launches()
+    x = torch.stack(btk.block_tridiag_multirhs_entries(Dt, Lt, cols, 10))
+    x_pl = torch.stack(
+        btk.block_tridiag_multirhs_entries_plain(Dt, Lt, cols, 10))
+    torch.cuda.synchronize()
+    assert btk.launches_by_b()["bt_msolve"] == {10: 1}
+    return x, x_pl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,R,B", [(12, 1, 64), (12, 300, 16), (51, 7, 64),
+                                   (51, 50, 100), (400, 1, 16),
+                                   (400, 7, 16), (400, 300, 4)])
+def test_bt_msolve_wide_horizons_and_columns_on_card(card, S, R, B):
+    """bt_msolve_kernel_wide at short, the main path's and long horizons
+    (its ring streams any S), one to more than a block's 256 columns:
+    within 1e-4 of the plain version."""
+    x, x_pl = msolve_b10(card, B, S, R, seed=S + R)
+    assert rel(x, x_pl) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 1000, 1024, 2048])
+def test_bt_msolve_wide_batches_on_card(card, B):
+    """bt_msolve_kernel_wide at S=51, R=50 on batches that fill the last
+    block of 5 scenarios or leave it partly empty: within 1e-4 of the
+    plain version."""
+    x, x_pl = msolve_b10(card, B, 51, 50, seed=B)
+    assert rel(x, x_pl) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [7, 300])
+def test_bt_msolve_wide_structural_zero_columns_on_card(card, R):
+    """Structural-zero right-hand-side columns (null pointers), shared and
+    stride-0 entries at b=10 through bt_msolve_kernel_wide, against the
+    plain version of the dense system."""
+    entry_table_cases(card, 10, R)
+
+
+@pytest.mark.cuda
+def test_bt_msolve_wide_nan_pivot_stays_nan_on_card(card):
+    """A NaN on one scenario's diagonal at stage 20 makes that scenario's
+    multi-RHS solution NaN wherever the plain version's is, and leaves the
+    other scenarios, its neighbours in the block included, finite and
+    within 1e-4 of the plain version."""
+    B = 12
+    x, x_pl = msolve_b10(card, B, 51, 50, seed=9, nan_at=(5, 20, 3, 3))
+    assert torch.equal(torch.isnan(x), torch.isnan(x_pl))
+    assert bool(torch.isnan(x[:, 5]).any())
+    ok = torch.ones(B, dtype=torch.bool, device=card)
+    ok[5] = False
+    assert bool(torch.isfinite(x[:, ok]).all())
+    assert rel(x[:, ok], x_pl[:, ok]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_bt_msolve_wide_launch_shape_on_card(card):
+    """At b=10 bt_msolve streams a ring of records a scenario and a ring of
+    values a column (8 stage slots each): the same shared memory at S=51
+    and S=201, R=50 columns a scenario and 2 scenarios a block (2 when the
+    columns are few), and enough resident blocks that B=1024 runs in one
+    wave; at b=5 it keeps a scenario's S records."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    short, long_ = (btk.launch_shape("bt_msolve", S, 10, R=50)
+                    for S in (51, 201))
+    assert short == long_
+    assert (short["RC"], short["teams"], short["threads"]) == (50, 2, 100)
+    assert short["smem_bytes"] == (2 * 1360 + 8 * 10 * 100) * 4
+    assert -(-1024 // short["teams"]) <= short["blocks_per_sm"] * sms, short
+    few = btk.launch_shape("bt_msolve", 51, 10, R=7)
+    assert (few["RC"], few["teams"]) == (7, 2)
+    team = btk.launch_shape("bt_msolve", 51, 5, R=50)
+    assert team["smem_bytes"] == (team["teams"] * 51
+                                  * btk.record_layout(5)[3] * 4)
+    assert team["blocks_per_sm"] >= 1

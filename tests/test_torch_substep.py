@@ -10,6 +10,8 @@ The CUDA kernel itself runs only on a card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py); here the wrapper's
 layout helpers and its CPU routing are checked.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -318,7 +320,8 @@ def _unpack_shard(m, team):
     return lanes, nsteps, slen, sched, cols, ncol
 
 
-SCHEDULE_ROBOTS = ["quadruped", "hopper4", "chain16", "chain24"]
+SCHEDULE_ROBOTS = ["quadruped", "hopper4", "biped10", "chain10", "chain16",
+                   "chain24"]
 
 
 @pytest.mark.parametrize("team", [32, 16])
@@ -377,6 +380,53 @@ def test_pack_shard_topology_inverts_the_schedules(robot, team):
     k3 = sk.pack_topology(m, team)
     assert np.array_equal(slen, k3[:team])
     assert np.array_equal(sched.ravel(), k3[team:team + team * m.nj])
+
+
+@pytest.mark.parametrize("robot", ["biped10", "chain10"])
+def test_launch_forms_take_their_tables(robot, monkeypatch):
+    """At nj=10 (the Adam stand-in's joint count) K3's launch ("team",
+    what ``substep`` launches) takes the team kernel's model, schedules
+    (``pack_topology`` at 8 lanes) and ``SubstepArgs``; the shard kernel's
+    ("shard", what ``substep_shard`` launches) the same model and
+    ``SubstepArgs`` with ``pack_shard_topology``'s schedules at a warp,
+    its columns and steps; each launch counts under its own kernel. The
+    library's queries are answered as csrc/substep.cu's are."""
+    sim = torch_sim(robot, "cpu")
+    m, B, cpu = sim.model, 7, torch.device("cpu")
+    nc = len(m.contact_body)
+    answers = {"substep_model_floats": sk.pack_model(sim).size,
+               "substep_ent_shift": sk.ent_shift(10), "substep_team": 8,
+               "substep_topo_ints": sk.pack_topology(m, 8).size,
+               "substep_shard_team": 32,
+               "substep_shard_topo_ints": sk.shard_topo_ints(10, 32)}
+    monkeypatch.setattr(sk, "_query", lambda symbol, nj: answers[symbol])
+    assert m.nj == 10
+    inp = substep_inputs(robot, B, seed=1, dr=True)
+    st, tau = torch_state(inp)
+    outs = [torch.empty((B, n)) for n in (3, 4, m.nj, m.nv)]
+    args, _ = sk.substep_args(sim, st, tau, outs)
+    params, k3_topo = sk._model_tensors(sim, cpu)
+    k3, ptrs, ints = sk._call(sim, args, B, cpu, "team")
+    assert k3 is sk.kernel(10) and k3.symbol == "substep"
+    assert ints == [10, nc, B]
+    assert ptrs == [params.data_ptr(), k3_topo.data_ptr(),
+                    ctypes.addressof(args)]
+    assert np.array_equal(k3_topo.numpy(), sk.pack_topology(m, 8))
+    k, ptrs, ints = sk._call(sim, args, B, cpu, "shard")
+    topo, ncol, nsteps = sk.pack_shard_topology(m, 32)
+    assert k is sk.shard_kernel(10) and k.symbol == "substep_shard"
+    assert k.defines == k3.defines and len(k.argtypes) == 9
+    assert ints == [10, nc, B, ncol, nsteps]
+    shard_topo = sk._shard_topology(sim, cpu)[0]
+    assert ptrs == [params.data_ptr(), shard_topo.data_ptr(),
+                    ctypes.addressof(args)]
+    assert np.array_equal(shard_topo.numpy(), topo)
+    sk.reset_launches()
+    k.launches, k3.launches = 3, 2
+    assert sk.launches_by_nj() == {10: 2}
+    assert sk.launches() == {"substep": 2, "substep_sharded": 3}
+    sk.reset_launches()
+    assert sk.launches() == {"substep": 0, "substep_sharded": 0}
 
 
 @pytest.mark.parametrize("robot", ["chain1", "chain6", "chain16",
