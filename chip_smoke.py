@@ -194,7 +194,7 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    (``flagship_expected``); per-resolve latency, resolves/s, adoption,
    coverage, each stage's wall and the selected checkpoint are printed;
 17. scenarios phase (main path of the scenarios slice), a process of its
-   own (``--scenarios-child``) started after the plan phase and read after
+   own (``--child scenarios``) started after the plan phase and read after
    the play phase: ``[scenarios]`` bench.py's gap batch at bench width
    (N=50, 20x10; l1 at B=2048, NN_oneshot at B=1024, refresh 3) with a
    per-scenario ROM (``vel_max`` per axis in [0.18, 0.22], ``dt`` in
@@ -206,10 +206,24 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    bt_factor / bt_msolve launches exactly the schedule's; then
    ``[scenarios ref]`` the per-scenario batch at B=8, 8x6 on the card
    against the CPU (plans within 2e-3, a draw off a kink of the net);
-18. mjcf phase: ``build_mjcf`` of every test robot of
+18. routes phase, the JAX package's route switches as an A/B on the card:
+   a process of its own (``--child routes``) started with
+   ``LGDT_PALLAS_SUBSTEP=0 LGDT_PALLAS_MULTIRHS=0`` beside the robots and
+   play phases: ``[routes] physics`` the 12-joint quadruped and the test
+   hopper at B=4096 (per-env DR rows, a PD law), one decimated env step
+   from a carried state on the sim ``RobotSim.create`` makes there (the
+   plain route: no K3 launch) and with ``use_pallas_substep=True`` (K3
+   once a substep), each substep of it held within ``TOL_REL`` from the
+   same state, each route's median env-step wall; ``[routes]
+   NN_oneshot`` ``[NN_oneshot]``'s solve and verdicts with the multi-RHS
+   solves on ``factor_solve_entries`` (no K2f or K2s launch, K1 still)
+   and on the kernels: feasible >= 0.98 each, the co-feasible plans
+   within 2e-3 on >= 90% (the ``[array]`` bars); its launches compare
+   kernels with plain routes and are not the main path's;
+19. mjcf phase: ``build_mjcf`` of every test robot of
    ``tests/torch_robot_cases.py`` (robots and chains) parsed with
    ``xml.etree``, its bodies and joints the model's;
-19. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
+20. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
    joint count on rows of their own, the instances no robot runs measured
    on their chains in the substep phase; ``bt_solve``'s row counts the
    other block sizes' launches; ``substep_sharded``, the shard kernel, a
@@ -223,10 +237,11 @@ Usage: ``python3 chip_smoke.py`` (all phases), or
 ``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
 debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl,
 train, train_rnn, tube, plan, robots, play, mesh, flagship, scenarios,
-mjcf; ``--phases plan`` is the planning slice alone, ``--phases robots``
-the robots slice, ``--phases play`` the play slice, ``--phases mesh`` the
-mesh slice, ``--phases flagship`` the two flagship pipelines,
-``--phases scenarios,mjcf`` the scenarios slice).
+routes, mjcf; ``--phases plan`` is the planning slice alone, ``--phases
+robots`` the robots slice, ``--phases play`` the play slice, ``--phases
+mesh`` the mesh slice, ``--phases flagship`` the two flagship pipelines,
+``--phases scenarios,mjcf`` the scenarios slice, ``--phases routes`` the
+route switches).
 """
 import argparse
 import concurrent.futures
@@ -242,7 +257,7 @@ import numpy as np
 
 PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl",
           "train", "train_rnn", "tube", "plan", "robots", "play", "mesh",
-          "flagship", "scenarios", "mjcf")
+          "flagship", "scenarios", "routes", "mjcf")
 N, H_REV = 50, 10
 B_L1, B_NN = 2048, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -659,7 +674,10 @@ def bench_batch(B, tube, dev, seed=0, mlp=None, h_rev=H_REV):
         tube_params=nn, device=dev)
 
 
-def solve_mode(tube, B, dev):
+def solve_mode(tube, B, dev, tag=None):
+    """The batched solve of ``tube`` on bench.py's gap batch and its
+    verdicts, printed under ``[tag]`` (default the tube): (record, the
+    solve's output)."""
     import torch
 
     from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
@@ -709,10 +727,11 @@ def solve_mode(tube, B, dev):
                verdicts=counts, certify_wall_s=cert_wall,
                solve_launches=solve_launch,
                launches={k: after[k] - before[k] for k in after})
-    print(f"[{tube}] " + json.dumps(rec))
-    check(feas >= 0.98, f"{tube}: feasible fraction {feas} < 0.98")
-    check(counts["failed"] <= 0.005 * B, f"{tube}: failed {counts}")
-    return rec
+    tag = tag or tube
+    print(f"[{tag}] " + json.dumps(rec))
+    check(feas >= 0.98, f"{tag}: feasible fraction {feas} < 0.98")
+    check(counts["failed"] <= 0.005 * B, f"{tag}: failed {counts}")
+    return rec, out
 
 
 def closed_loop(dev, B=B_NN, H=3):
@@ -3622,10 +3641,152 @@ def scenarios_reference(dev, B=8):
     return rec
 
 
-def scenarios_child(out_path):
-    """The scenarios slice in a process of its own (``--scenarios-child``),
-    beside the parent's phases: ``[scenarios]`` then ``[scenarios ref]``,
-    written to ``out_path`` as JSON."""
+def scenarios_child(dev):
+    """The scenarios slice in a process of its own, beside the parent's
+    phases: ``[scenarios]`` then ``[scenarios ref]``."""
+    rec, launches = scenarios_phase(dev)
+    return dict(scenarios=rec, ref=scenarios_reference(dev),
+                launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# Routes: the JAX package's kernel-route switches, kernel against plain
+# ---------------------------------------------------------------------------
+
+ROUTES_ENV = {"LGDT_PALLAS_SUBSTEP": "0", "LGDT_PALLAS_MULTIRHS": "0"}
+ROUTES_ROBOTS = ("quadruped", "hopper")    # nj=12 and the test hopper, nj=4
+ROUTES_WARM = 3      # kernel-route steps from the random state: the carry
+ROUTES_REPS = 5      # timed env steps of each route, from the same state
+
+
+def routes_physics(robot, dev):
+    """One decimated env step of a test robot at B=4096 (per-env DR rows,
+    a PD torque law to its default pose) from a carried state, on the sim
+    ``RobotSim.create`` makes (the plain route where
+    ``LGDT_PALLAS_SUBSTEP=0``) and on the same sim with
+    ``use_pallas_substep=True``: the plain route launches no K3, the
+    kernel route one a substep; each route's median env-step wall over
+    ``ROUTES_REPS``. The routes are held within ``TOL_REL`` substep by
+    substep, each substep of the step taken by both from the same state
+    (the kernel route's); the whole step's difference, four or eight
+    substeps chained, is recorded beside it."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+
+    rc = robot_cases()
+    inp = rc.substep_inputs(robot, B_RL, seed=17, dr=True)
+    sim = rc.torch_sim(robot, dev, inp)
+    kernel = sim.replace(use_pallas_substep=True)
+    q0 = torch.as_tensor(rc.robot_config(robot)["q0"], device=dev)
+
+    def pd(s):
+        return 20.0 * (q0 - s.q) - 0.5 * s.v[:, 6:]
+
+    state, _ = rc.torch_state(inp, dev)
+    for _ in range(ROUTES_WARM):
+        state = kernel.step(state, pd)
+    fields = ("base_pos", "base_quat", "q", "v")
+    out, walls, launches = {}, {}, {}
+    for route, s in (("plain", sim), ("kernel", kernel)):
+        sk.reset_launches()
+        out[route] = s.step(state, pd)
+        torch.cuda.synchronize()
+        launches[route] = sk.launches()["substep"]
+        ts = []
+        for _ in range(ROUTES_REPS):
+            t0 = time.perf_counter()
+            s.step(state, pd)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        walls[route] = float(np.median(ts)) * 1e3
+    rel = dict.fromkeys(fields, 0.0)
+    st = state
+    for _ in range(sim.decimation):
+        tau = pd(st)
+        a, b = kernel.substep(st, tau), sim.substep(st, tau)
+        for name in fields:
+            x, y = getattr(a, name), getattr(b, name)
+            check(bool(torch.isfinite(x).all() and torch.isfinite(y).all()),
+                  f"[routes] {robot}: non-finite {name}")
+            rel[name] = max(rel[name], errs(x, y)[1])
+        st = a
+    step_rel = {name: errs(getattr(out["kernel"], name),
+                           getattr(out["plain"], name))[1]
+                for name in fields}
+    rec = dict(robot=robot, nj=sim.model.nj, batch=B_RL,
+               decimation=sim.decimation,
+               default_route=sim.use_pallas_substep, env_step_ms=walls,
+               plain_over_kernel=walls["plain"] / walls["kernel"],
+               k3_launches=launches, max_rel_err_substep=rel,
+               max_rel_err_step=step_rel)
+    print(f"[routes] physics {robot}: " + json.dumps(rec))
+    check(sim.use_pallas_substep is False,
+          f"[routes] {robot}: the variable did not set the plain route")
+    check(launches == {"plain": 0, "kernel": sim.decimation},
+          f"[routes] {robot}: K3 launches {launches}")
+    check(max(rel.values()) <= TOL_REL, f"[routes] {robot}: rel err {rel}")
+    return rec
+
+
+def routes_solver(dev):
+    """``[NN_oneshot]``'s solve and verdicts (B=1024, N=50, the gap batch,
+    ``linsolve="pallas"``) on the multi-RHS route ``LGDT_PALLAS_MULTIRHS``
+    gives (``factor_solve_entries``: no K2f or K2s launch, K1 still) and
+    on the kernel route (``_PALLAS_MULTIRHS`` set back): each feasible on
+    >= 0.98 of the batch, and the plans of the scenarios feasible in both
+    within 2e-3 on >= 90% of them (the ``[array]`` bars)."""
+    from legged_gym_dev_tpu_torch.solver import staged_scalar as tss
+
+    rec, plans = {}, {}
+    check(not tss._PALLAS_MULTIRHS,
+          "[routes] LGDT_PALLAS_MULTIRHS=0 left the kernel route on")
+    for route in ("factor_solve_entries", "kernel"):
+        tss._PALLAS_MULTIRHS = route == "kernel"
+        r, out = solve_mode("NN_oneshot", B_NN, dev,
+                            tag=f"routes NN_oneshot {route}")
+        plans[route] = (out.z.cpu().numpy(), out.sol.viol.cpu().numpy())
+        rec[route] = {k: r[k] for k in ("solve_wall_s", "solves_per_s",
+                                        "feasible_frac", "verdicts",
+                                        "certify_wall_s", "launches")}
+    off = rec["factor_solve_entries"]["launches"]
+    check(off["bt_factor"] == 0 and off["bt_msolve"] == 0
+          and off["bt_solve"] > 0, f"[routes] multi-RHS off: launches {off}")
+    on = rec["kernel"]["launches"]
+    check(on["bt_factor"] > 0 and on["bt_msolve"] > 0,
+          f"[routes] kernel route: launches {on}")
+    (z0, v0), (z1, v1) = plans.values()
+    both = (v0 < 1e-3) & (v1 < 1e-3)
+    dz = np.abs(z0 - z1).max(axis=(1, 2))
+    within = float(np.mean(dz[both] <= 2e-3)) if both.any() else 0.0
+    rec.update(max_dz=float(dz.max()), co_feasible=int(both.sum()),
+               max_dz_co_feasible=float(dz[both].max()) if both.any()
+               else None, within_2e3=within)
+    print("[routes] NN_oneshot " + json.dumps(
+        {k: rec[k] for k in ("max_dz", "co_feasible", "max_dz_co_feasible",
+                             "within_2e3")}))
+    check(within >= 0.9, f"[routes] co-feasible within 2e-3: {within}")
+    return rec
+
+
+def routes_child(dev):
+    """``[routes]`` in a process of its own started with ``ROUTES_ENV``
+    (the JAX package's switches off), beside the parent's robots and play
+    phases: the physics step on both routes for each robot of
+    ``ROUTES_ROBOTS``, then the NN_oneshot solve on both multi-RHS
+    routes. Its launches compare kernels with their plain routes and are
+    not the main path's."""
+    return dict(physics={r: routes_physics(r, dev) for r in ROUTES_ROBOTS},
+                solver=routes_solver(dev))
+
+
+CHILDREN = {"scenarios": scenarios_child, "routes": routes_child}
+CHILD_ENV = {"routes": ROUTES_ENV}
+
+
+def run_child(kind, out_path):
+    """``CHILDREN[kind]`` on the card (``--child KIND OUT``), its record
+    and wall written to ``out_path`` as JSON."""
     import torch
 
     from legged_gym_dev_tpu_torch.utils.runtime import fp32_matmul
@@ -3633,48 +3794,48 @@ def scenarios_child(out_path):
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
     with fp32_matmul():
-        rec, launches = scenarios_phase(dev)
-        ref = scenarios_reference(dev)
-    Path(out_path).write_text(json.dumps(dict(
-        scenarios=rec, ref=ref, launches=launches,
-        wall_s=time.perf_counter() - t0)))
+        rec = CHILDREN[kind](dev)
+    rec["wall_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(rec))
     return 0
 
 
-def start_scenarios(running):
-    """``scenarios_child`` as a process on the card, appended to
-    ``running``. Returns its working directory."""
+def start_child(kind, running):
+    """``chip_smoke.py --child KIND`` as a process on the card, with
+    ``CHILD_ENV[kind]`` in its environment, appended to ``running``.
+    Returns its working directory."""
     import shutil
 
-    work = ROOT / "build" / "chip_smoke_scenarios"
+    work = ROOT / "build" / f"chip_smoke_{kind}"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    env = {**os.environ, **CHILD_ENV.get(kind, {})}
     with open(work / "out", "w") as out, open(work / "err", "w") as err:
         proc = subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"),
-             "--scenarios-child", str(work / "rec.json")],
-            cwd=ROOT, stdout=out, stderr=err)
-    running.append(("scenarios", "chip_smoke.py", time.time(), proc))
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--child", kind,
+             str(work / "rec.json")],
+            cwd=ROOT, env=env, stdout=out, stderr=err)
+    running.append((kind, "chip_smoke.py", time.time(), proc))
     return work
 
 
-def finish_scenarios(running, work, timeout_s=600):
-    """Waits for the scenarios process, prints its lines and checks its
+def finish_child(kind, running, work, timeout_s=600):
+    """Waits for the ``kind`` process, prints its lines and checks its
     exit. Returns its record."""
-    for kind, _, t0, proc in running:
-        if kind != "scenarios":
+    for k, _, t0, proc in running:
+        if k != kind:
             continue
         proc.wait(timeout=max(1.0, timeout_s - (time.time() - t0)))
         for line in (work / "out").read_text().splitlines():
             print(line)
         err = (work / "err").read_text()
         check(proc.returncode == 0,
-              f"scenarios process exited {proc.returncode}: {err[-3000:]}")
+              f"{kind} process exited {proc.returncode}: {err[-3000:]}")
         rec = json.loads((work / "rec.json").read_text())
-        print(f"[scenarios] process wall {time.time() - t0:.1f} s "
+        print(f"[{kind}] process wall {time.time() - t0:.1f} s "
               f"(its phases {rec['wall_s']:.1f} s)")
         return rec
-    raise RuntimeError("no scenarios process was started")
+    raise RuntimeError(f"no {kind} process was started")
 
 
 def mjcf_phase():
@@ -3865,10 +4026,11 @@ def kernel_phase_b10(dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
-    ap.add_argument("--scenarios-child", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--child", nargs=2, metavar=("KIND", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.scenarios_child:
-        return scenarios_child(args.scenarios_child)
+    if args.child:
+        return run_child(*args.child)
     phases = [s for s in args.phases.split(",") if s]
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -3980,11 +4142,12 @@ def run_phases(phases, running):
             # the b=10 instances have rows of their own in the kernels line
             main_launches[k] += v - by_b[k].get(10, 0)
             main_launches[f"{k}_b10"] = by_b[k].get(10, 0)
-    if "scenarios" in phases:
-        # per-scenario ROMs and nets: a process of its own beside the
-        # robots and play phases (the shared form timed in turns with it)
-        scenarios_work = start_scenarios(running)
-        t_overlap = time.perf_counter()
+    # per-scenario ROMs and nets (the shared form timed in turns with
+    # them) and the kernel routes against the plain ones: processes of
+    # their own beside the robots and play phases
+    children = {kind: start_child(kind, running)
+                for kind in ("scenarios", "routes") if kind in phases}
+    t_overlap = time.perf_counter()
     if "robots" in phases:
         k3, by_nj = robots_phase(dev)
         # each K3 instance has a row: nj=12 is "substep" (the A1 and
@@ -4005,12 +4168,15 @@ def run_phases(phases, running):
             main_launches[name] = main_launches.get(name, 0) + n
         for k, v in bt_play.items():
             main_launches[k] += v
-    if "scenarios" in phases:
-        print("[scenarios] beside the robots and play phases, which took "
-              f"{time.perf_counter() - t_overlap:.1f} s")
-        scen = finish_scenarios(running, scenarios_work)
+    if children:
+        print(f"[{', '.join(children)}] beside the robots and play phases, "
+              f"which took {time.perf_counter() - t_overlap:.1f} s")
+    if "scenarios" in children:
+        scen = finish_child("scenarios", running, children["scenarios"])
         for k, v in scen["launches"].items():
             main_launches[k] += v
+    if "routes" in children:
+        finish_child("routes", running, children["routes"])
     if "mjcf" in phases:
         mjcf_phase()
     if "mesh" in phases:

@@ -44,6 +44,9 @@ class RaibertHeuristic:
     clip_vel: float
     clip_ang: float
 
+    def replace(self, **kw) -> "RaibertHeuristic":
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def create(cls, Kp, Kv, Kff, clip_pos, clip_vel, clip_ang):
         return cls(*(f32(v) for v in (Kp, Kv, Kff, clip_pos, clip_vel,
@@ -83,6 +86,9 @@ class DoubleSingleTracking:
     Kp: float
     Kd: float
     clip_v_z: Callable
+
+    def replace(self, **kw) -> "DoubleSingleTracking":
+        return dataclasses.replace(self, **kw)
 
     @classmethod
     def create(cls, Kp, Kd, clip_v_z):

@@ -3,8 +3,9 @@
 Counterpart of ``legged_gym_dev_tpu/core/rom.py``: the base class and all
 six ROMs of the zoo (``SingleInt2D``, the tube-MPC plan ROM;
 ``DoubleInt2D``, the closed-loop plant; the unicycle family), each with
-the array form (``f``, ``proj_z``, ``des_pose_vel``, ``clip_v_z``) and the
-entry form (``f_entries``, ``f_jac_entries``) the staged solver uses.
+the array form (``f``, ``proj_z``, ``des_pose_vel``, ``clip_v``,
+``clip_v_z``) and the entry form (``f_entries``, ``f_jac_entries``) the
+staged solver uses.
 
 A ROM comes in two forms. The shared form serves a whole scenario batch:
 ``dt`` is a Python float (held exactly at its float32 value, as the JAX leaf
@@ -69,6 +70,9 @@ class RomDynamics:
             [float(r.dt) for r in roms],
             *(np.stack([getattr(r, k).cpu().numpy() for r in roms])
               for k in ("z_min", "z_max", "v_min", "v_max")), device=device)
+
+    def replace(self, **kw) -> "RomDynamics":
+        return replace(self, **kw)
 
     @property
     def per_scenario(self) -> bool:
@@ -165,6 +169,12 @@ class RomDynamics:
         v_min_z = torch.maximum(self._bound(self.v_min, z),
                                 (z_min[..., k:] - z[..., k:]) / dt)
         return v_min_z, v_max_z
+
+    def clip_v(self, v):
+        """``v (B, ..., m)`` clipped to [v_min, v_max], shared or per
+        scenario."""
+        return torch.clamp(v, self._bound(self.v_min, v),
+                           self._bound(self.v_max, v))
 
     def clip_v_z(self, z, v):
         v_min_z, v_max_z = self.compute_state_dependent_input_bounds(z)

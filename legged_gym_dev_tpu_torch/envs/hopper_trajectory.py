@@ -67,6 +67,9 @@ class HopperDR:
     ts_slope: torch.Tensor      # (B,)
     base_mass: torch.Tensor     # (B,) additive payload
 
+    def replace(self, **kw) -> "HopperDR":
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def ones(cls, B: int, device) -> "HopperDR":
         def one(*shape):

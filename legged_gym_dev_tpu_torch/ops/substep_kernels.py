@@ -647,10 +647,11 @@ def _substep(sim, state, tau, form) -> RobotState:
     return RobotState(*outs)
 
 
-def substep_sharded(sim, state, tau, mesh, axis="dp"):
+def substep_sharded(sim, state, tau, mesh, axis="dp", step=None):
     """One physics substep of an env batch sharded over ``mesh``: on each
-    shard ``substep_shard`` (the shard kernel on a CUDA shard, which
-    launches or raises; the plain version on a CPU shard) on that shard's
+    shard ``step`` (default ``substep_shard``: the shard kernel on a CUDA
+    shard, which launches or raises; the plain version on a CPU shard;
+    ``substep_plain`` for the plain route on every device) on that shard's
     sim from
     ``sim.shard(mesh)``, which holds the shard's rows of every per-env DR
     field (``base_mass_delta`` (B,), contact stiffness, damping and
@@ -672,11 +673,12 @@ def substep_sharded(sim, state, tau, mesh, axis="dp"):
         state = shard_batch(state, mesh, axis, batch_size=B)
     if not isinstance(tau, Sharded):
         tau = shard_batch(tau, mesh, axis, batch_size=B)
+    step = step or substep_shard
     out = []
     for s, st, t in zip(sim.shard(mesh, axis), state, tau):
         if st.base_pos.device != s.device:
             raise ValueError(f"a shard's state on {st.base_pos.device}, "
                              f"its sim on {s.device}")
         with _on_device(s.device):
-            out.append(substep_shard(s, st, t))
+            out.append(step(s, st, t))
     return Sharded(out, mesh, B)

@@ -51,6 +51,9 @@ class PPOConfig:
     min_lr: float = 1e-5
     max_lr: float = 1e-2
 
+    def replace(self, **kw) -> "PPOConfig":
+        return dataclasses.replace(self, **kw)
+
 
 class AdamState(NamedTuple):
     count: torch.Tensor          # () int32

@@ -125,6 +125,11 @@ class CheckpointManager:
                 out.append(int(m.group(1)))
         return sorted(out)
 
+    def wait_until_finished(self) -> None:
+        """Returns at once: ``save`` writes each checkpoint before it
+        returns (the JAX package waits here for its asynchronous
+        commits)."""
+
 
 def _leaves(tree, prefix=()):
     """(path, tensor) pairs of a nested metrics dict, keys sorted."""

@@ -32,6 +32,9 @@ class ActuatorNetLSTM:
     out_scale: torch.Tensor  # ()
     in_scale: torch.Tensor   # (2,) input normalization [pos_err, vel]
 
+    def replace(self, **kw) -> "ActuatorNetLSTM":
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def from_torchscript(cls, path: str, device=None) -> "ActuatorNetLSTM":
         dev = resolve_device(device)

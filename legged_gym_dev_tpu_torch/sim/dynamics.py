@@ -60,6 +60,9 @@ class RobotModel:
     body_names: Tuple[str, ...] = ()
     contact_link_names: Tuple[str, ...] = ()
 
+    def replace(self, **kw) -> "RobotModel":
+        return dataclasses.replace(self, **kw)
+
     @property
     def nb(self) -> int:
         return self.nj + 1

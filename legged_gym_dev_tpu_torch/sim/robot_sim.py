@@ -11,8 +11,12 @@ holds the model and the contact, spring and limit parameters:
 CUDA kernel for CUDA tensors, its plain version for CPU tensors) for every
 sim that ``supports_kernel`` admits (flat terrain, per-robot springs), and
 the plain version for the others (a heightfield), as the JAX package
-routes non-flat terrain to its XLA path. The route is read from the sim
-alone.
+routes non-flat terrain to its XLA path. ``use_pallas_substep`` picks the
+route as the JAX field does: ``None`` (the default) and ``True`` take the
+kernel where ``supports_kernel`` holds, ``False`` takes the plain version
+(``substep_kernels.substep_plain``) also for CUDA tensors. ``create``
+sets it from ``LGDT_PALLAS_SUBSTEP=0/1`` unless the caller names it.
+The route is read from the sim alone.
 
 ``shard(mesh)`` cuts a sim into per-shard sims (per-env DR fields
 sliced, everything on the shard's device), each a sim of its shard's envs
@@ -20,11 +24,13 @@ whose ``substep`` takes the shard kernel (``substep_kernels.substep_shard``,
 K3s: designed for a shard's batch, equal to the substep kernel bit for
 bit); the envs' replicas over a mesh (``envs.ShardedEnv``) step on them.
 With ``shard_mesh`` set, ``substep`` on a whole batch goes shard by shard
-through ``substep_kernels.substep_sharded`` on those sims.
+through ``substep_kernels.substep_sharded`` on those sims (with
+``use_pallas_substep=False``, the plain version on each shard's device).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -43,6 +49,9 @@ class JointSprings:
     stiffness: torch.Tensor   # (nj,)
     damping: torch.Tensor     # (nj,)
     setpoint: torch.Tensor    # (nj,)
+
+    def replace(self, **kw) -> "JointSprings":
+        return dataclasses.replace(self, **kw)
 
     @classmethod
     def zero(cls, nj: int, device=None):
@@ -68,6 +77,9 @@ class RobotSim:
     # angular_velocity = 1000): keeps a contact blow-up from overflowing to
     # inf within one decimated step.
     base_vel_limit: float = 1000.0
+    # The substep's route (module docstring). JAX's kernel route also needs
+    # B % 1024 == 0 above 1024; the port's kernels take any batch.
+    use_pallas_substep: Optional[bool] = None
     # Optional ``(mesh, axis)``: ``substep`` takes the kernel's route
     # through ``substep_sharded`` and gathers the result (the JAX sim's
     # ``pallas_substep_sharded`` route; a heightfield keeps the plain
@@ -128,7 +140,12 @@ class RobotSim:
     @classmethod
     def create(cls, model, contact=None, springs=None, dt=0.005,
                decimation=4, terrain_fn=flat_terrain, device=None, **kw):
+        """A sim of ``model``; ``LGDT_PALLAS_SUBSTEP=0/1`` in the
+        environment sets ``use_pallas_substep`` unless ``kw`` names it."""
         dev = resolve_device(device)
+        env_flag = os.environ.get("LGDT_PALLAS_SUBSTEP", "")
+        if env_flag in ("0", "1"):
+            kw.setdefault("use_pallas_substep", env_flag == "1")
         return cls(
             model=model,
             contact=contact or ContactParams.create(device=dev),
@@ -152,16 +169,19 @@ class RobotSim:
 
     def substep(self, state: RobotState, tau: torch.Tensor) -> RobotState:
         """One physics step at self.dt with applied joint torques tau."""
-        if substep_kernels.supports_kernel(self):
-            if self.shard_mesh is not None:
-                from ..parallel.mesh import gather
+        plain = self.use_pallas_substep is False
+        kernel = not plain and substep_kernels.supports_kernel(self)
+        if self.shard_mesh is not None and (plain or kernel):
+            from ..parallel.mesh import gather
 
-                return gather(substep_kernels.substep_sharded(
-                    self, state, tau, *self.shard_mesh))
-            if self.is_shard:
-                return substep_kernels.substep_shard(self, state, tau)
-            return substep_kernels.substep(self, state, tau)
-        return substep_kernels.substep_plain(self, state, tau)
+            return gather(substep_kernels.substep_sharded(
+                self, state, tau, *self.shard_mesh,
+                step=substep_kernels.substep_plain if plain else None))
+        if not kernel:
+            return substep_kernels.substep_plain(self, state, tau)
+        if self.is_shard:
+            return substep_kernels.substep_shard(self, state, tau)
+        return substep_kernels.substep(self, state, tau)
 
     def step(self, state: RobotState,
              torque_fn: Callable[[RobotState], torch.Tensor]) -> RobotState:

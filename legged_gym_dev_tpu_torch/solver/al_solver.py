@@ -30,7 +30,7 @@ Runs in full fp32 (TF32 off), as the JAX solver at
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -71,6 +71,9 @@ class ALConfig:
     # NN-oneshot Woodbury basis refresh: "inner" (exact, every inner step),
     # "outer" (once per outer), or an int k >= 1 (every k inner steps).
     nn_basis_refresh: object = "inner"
+
+    def replace(self, **kw) -> "ALConfig":
+        return replace(self, **kw)
 
 
 class ALSolution(NamedTuple):

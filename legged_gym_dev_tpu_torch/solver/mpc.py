@@ -11,7 +11,7 @@ a leading batch axis.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, NamedTuple
 
 import torch
@@ -37,6 +37,9 @@ class MPCConfig:
     H_rev: int = 10
     Kp: float = 10.0
     Kd: float = 10.0
+
+    def replace(self, **kw) -> "MPCConfig":
+        return replace(self, **kw)
 
 
 class MPCTrace(NamedTuple):

@@ -27,8 +27,14 @@ CPU tensors); "thomas", and "auto" below 128 stages, to
 ``factor_solve_entries`` here; "cr", and "auto" from 128 stages, to the
 block cyclic reduction ``cr_solve_entries`` for the single-RHS solves of
 the l1/l2 tubes (the NN tube's solves take "thomas" then, as in JAX).
+``LGDT_PALLAS_MULTIRHS=0`` in the environment (read at import into
+``_PALLAS_MULTIRHS``, as in JAX) keeps "pallas" for the single right-hand
+side solves and sends the NN tube's multi-RHS Woodbury solves to
+``factor_solve_entries``.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -587,6 +593,9 @@ def factor_solve_entries(D_e, L_e, rhs_e, b):
 # CPU), symbolic zeros and all: the kernels read each entry in place and a
 # structural zero as 0, and only the lower triangle of D.
 
+# Read once, as in JAX (tests and chip_smoke.py set the attribute).
+_PALLAS_MULTIRHS = os.environ.get("LGDT_PALLAS_MULTIRHS", "1") == "1"
+
 
 # ---------------------------------------------------------------------------
 # entry-form block cyclic reduction ("cr")
@@ -871,7 +880,7 @@ def _solve_staged_scalar_impl(sp, p, u0, lb_u, ub_u, cfg, lam0, mu0,
     linsolve = _linsolve(cfg, S)
 
     def msolve(Dm, Lm, rhs_m):
-        if linsolve == "pallas":
+        if linsolve == "pallas" and _PALLAS_MULTIRHS:
             return block_tridiag_multirhs_entries(Dm, Lm, rhs_m, b)
         return factor_solve_entries(Dm, Lm, rhs_m, b)
 

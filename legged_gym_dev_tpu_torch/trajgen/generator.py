@@ -73,6 +73,9 @@ class TrajectoryGenerator:
     N: int = 4
     dN: int = 1
 
+    def replace(self, **kw) -> "TrajectoryGenerator":
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def create(cls, rom, t_sampler, weight_sampler, dt_loop=0.02, N=4, dN=1,
                freq_low=0.01, freq_high=10.0, prob_stationary=0.01):

@@ -25,6 +25,9 @@ class UniformSampleHoldDT:
     t_low: float
     t_high: float
 
+    def replace(self, **kw) -> "UniformSampleHoldDT":
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def create(cls, t_low: float, t_high: float) -> "UniformSampleHoldDT":
         return cls(t_low=f32(t_low), t_high=f32(t_high))
@@ -57,6 +60,9 @@ class UniformWeightSampler:
     a per-mode mask, normalized onto the simplex."""
 
     mask: tuple = (1.0, 1.0, 1.0, 1.0)
+
+    def replace(self, **kw) -> "UniformWeightSampler":
+        return dataclasses.replace(self, **kw)
 
     def sample(self, gen: torch.Generator, batch: int,
                device) -> torch.Tensor:

@@ -140,6 +140,26 @@ class MLP(nn.Module):
                    activation=m0.activation,
                    final_activation=m0.final_activation, out_scale=out_scale)
 
+    def replace(self, **kw) -> "MLP":
+        """A new MLP with the fields ``kw`` names (``weights``, ``biases``,
+        ``activation``, ``final_activation``, ``out_scale``) swapped and the
+        others' tensors shared: flax.struct's ``replace``, so that
+        ``model.replace(out_scale=s)`` gives the calibrated net. A float
+        ``out_scale`` becomes a float32 tensor on the weights' device."""
+        fields = dict(weights=list(self.weights), biases=list(self.biases),
+                      activation=self.activation,
+                      final_activation=self.final_activation,
+                      out_scale=self.out_scale)
+        unknown = set(kw) - set(fields)
+        if unknown:
+            raise TypeError(f"MLP has no fields {sorted(unknown)}")
+        fields.update(kw)
+        s = fields["out_scale"]
+        if s is not None and not isinstance(s, torch.Tensor):
+            fields["out_scale"] = torch.as_tensor(
+                s, dtype=torch.float32, device=fields["weights"][0].device)
+        return MLP(**fields)
+
     @property
     def per_scenario(self) -> bool:
         return self.weights[0].ndim == 3

@@ -117,14 +117,7 @@ def surrogate_robot(dt: float, vel: float, acc: float, device):
 def with_out_scale(model, scale: float):
     """The tube net with ``out_scale`` set to ``scale`` (the weights are
     shared, not copied)."""
-    from legged_gym_dev_tpu_torch.tube.models import MLP
-
-    dev = model.weights[0].device
-    return MLP(list(model.weights), list(model.biases),
-               activation=model.activation,
-               final_activation=model.final_activation,
-               out_scale=torch.tensor(scale, dtype=torch.float32,
-                                      device=dev))
+    return model.replace(out_scale=scale)
 
 
 def make_loop(robot, H: int, N: int, H_rev: int, cfg_first: ALConfig,

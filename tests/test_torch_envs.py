@@ -15,7 +15,9 @@ The velocity task's step is held the same way, with the command
 curriculum on and the resample and push clocks inside the step
 (``test_quadruped_velocity_step_matches_jax``).
 
-The JAX step is compiled once for the module (about a minute on the CPU).
+The JAX envs run op by op (``jax.disable_jit``, as in
+tests/torch_robot_steps.py): compiling a step takes over a minute on the
+CPU, its few steps op by op less than that.
 """
 import numpy as np
 import pytest
@@ -41,8 +43,9 @@ from legged_gym_dev_tpu_torch.interop import (
     env_state_from_numpy,
     velocity_env_state_from_numpy,
 )
-from tests.torch_robot_cases import QUADRUPED_URDF
 from tests.torch_port_cases import one_torch_thread  # noqa: F401
+from tests.torch_robot_cases import QUADRUPED_URDF
+from tests.torch_robot_steps import jax_step
 
 B = 8
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -54,7 +57,7 @@ def envs():
     jenv = jax_make_trajectory_env(QUADRUPED_URDF, **jax_kwargs({}), **kw)
     tenv = make_trajectory_env(QUADRUPED_URDF, **_anymal_c_kwargs({}),
                                device="cpu", **kw)
-    return jenv, tenv, jax.jit(jenv.step)
+    return jenv, tenv, jax_step(jenv)
 
 
 @pytest.fixture(scope="module")
@@ -63,11 +66,11 @@ def carried(envs):
     coming step."""
     jenv, _, jstep = envs
     rng = np.random.default_rng(0)
-    js, _ = jax.jit(jenv.reset)(jax.random.PRNGKey(0))
+    with jax.disable_jit():
+        js, _ = jenv.reset(jax.random.PRNGKey(0))
     for _ in range(2):
         js, _ = jstep(js, jnp.asarray(rng.normal(0, 0.5, (B, 12)),
                                       jnp.float32))
-    # (same aval as the field, so the jitted step is not traced again)
     return js.replace(time_until_next_push=js.time_until_next_push * 0.0
                       + 100.0)
 
@@ -227,14 +230,15 @@ def test_quadruped_velocity_step_matches_jax():
     the rewards and episode info of every env, and the state and
     observations of the envs those draws do not reach match JAX's (TOL);
     the redrawn and pushed envs differ only where the draws land. (JAX's
-    velocity step compiles once here, about a minute.)"""
+    velocity step runs op by op.)"""
     kw = dict(num_envs=B, add_noise=False, command_curriculum=True)
     jenv = jax_make_velocity_env(QUADRUPED_URDF, **jax_kwargs({}), **kw)
     tenv = make_velocity_env(QUADRUPED_URDF, **_anymal_c_kwargs({}),
                              device="cpu", **kw)
-    jstep = jax.jit(jenv.step)
+    jstep = jax_step(jenv)
     rng = np.random.default_rng(2)
-    js, _ = jax.jit(jenv.reset)(jax.random.PRNGKey(1))
+    with jax.disable_jit():
+        js, _ = jenv.reset(jax.random.PRNGKey(1))
     for _ in range(2):
         js, _ = jstep(js, jnp.asarray(rng.normal(0, 0.5, (B, 12)),
                                       jnp.float32))

@@ -261,6 +261,45 @@ def test_b10_long_horizon_on_card(card, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [2047, 1024])
+def test_b10_ring_kernels_repeat_bit_for_bit_on_card(card, B):
+    """The cp.async ring kernels at b=10 (``bt_solve_kernel_wide``,
+    ``bt_factor_kernel_wide``, ``bt_msolve_kernel_wide``; S=51, R=50),
+    launched 8 times on the same inputs into outputs set to NaN before
+    each launch, on a ragged batch (2047: the last block's second team
+    repeats scenario 2046) and a full one: every launch's x, records and
+    multi-RHS x equal the first launch's bit for bit (a read racing a
+    refill of a ring would differ from launch to launch), and the first
+    is within 1e-4 of the plain versions."""
+    S, b, R = 51, 10, 50
+    D, L, rhs = make_systems(B, S, b, R, seed=B + 3)
+    Dt, Lt = entry_lists(D, L, lambda a: torch.as_tensor(a, device=card))
+    r = [torch.as_tensor(rhs[:, :, i, 0], device=card) for i in range(b)]
+    cols = [torch.as_tensor(rhs[:, :, i, :], device=card) for i in range(b)]
+    args, x = btk.prepare_solve_entries(Dt, Lt, r, b)
+    fargs, recs, rargs, xo = btk.prepare_multirhs_entries(Dt, Lt, cols, b)
+    first = None
+    for _ in range(8):
+        for t in (x, recs, xo):
+            t.fill_(float("nan"))
+        btk._launch_solve(args, S, B, b, card)
+        btk._launch_factor(fargs, S, B, b, card)
+        btk._launch_msolve(recs, rargs, xo, S, B, R, b, card)
+        got = [t.clone() for t in (x, recs, xo)]
+        if first is None:
+            first = got
+        for g, f, name in zip(got, first, ("x", "records", "multi-RHS x")):
+            assert torch.equal(g, f), name
+    x_pl = torch.stack(btk.block_tridiag_solve_entries_plain(Dt, Lt, r, b))
+    xo_pl = torch.stack(
+        btk.block_tridiag_multirhs_entries_plain(Dt, Lt, cols, b))
+    rec_pl = btk.factor_records_plain(Dt, Lt, b, B, S)
+    assert rel(first[0], x_pl) <= 1e-4
+    assert rel(first[1], rec_pl) <= 1e-4
+    assert rel(first[2], xo_pl) <= 1e-4
+
+
+@pytest.mark.cuda
 def test_b10_nan_pivot_stays_nan_on_card(card):
     """A NaN on one scenario's diagonal at stage 20 stays NaN: that
     scenario's x and its records from stage 20 on are NaN as the plain
@@ -370,6 +409,36 @@ def test_substep_matches_plain_on_card(card, robot, B, dr):
     assert sk.launches() == {"substep": 1, "substep_sharded": 0}
     for name in ("base_pos", "base_quat", "q", "v"):
         assert rel(getattr(out, name), getattr(ref, name)) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["quadruped", "hopper"])
+def test_plain_route_launches_no_substep_kernel_on_card(card, robot):
+    """``use_pallas_substep=False`` takes the plain version on the card:
+    no launch of K3 or of the shard kernel, whole or under a 2-shard mesh
+    of the card, and the step of ``substep_plain``; ``True`` launches K3
+    once."""
+    from legged_gym_dev_tpu_torch.parallel.mesh import make_mesh
+
+    rc = robot_cases()
+    inp = rc.substep_inputs(robot, 1000, seed=3, dr=True)
+    sim = rc.torch_sim(robot, card, inp).replace(use_pallas_substep=False)
+    st, tau = rc.torch_state(inp, card)
+    mesh = make_mesh(2, devices=[card, card])
+    ref = sk.substep_plain(sim, st, tau)
+    sk.reset_launches()
+    out = sim.substep(st, tau)
+    out_mesh = sim.replace(shard_mesh=(mesh, "dp")).substep(st, tau)
+    torch.cuda.synchronize()
+    assert sk.launches() == {"substep": 0, "substep_sharded": 0}
+    for name in ("base_pos", "base_quat", "q", "v"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+        assert rel(getattr(out_mesh, name), getattr(ref, name)) <= 1e-5, name
+    out_k = sim.replace(use_pallas_substep=True).substep(st, tau)
+    torch.cuda.synchronize()
+    assert sk.launches() == {"substep": 1, "substep_sharded": 0}
+    for name in ("base_pos", "base_quat", "q", "v"):
+        assert rel(getattr(out_k, name), getattr(ref, name)) <= 1e-4, name
 
 
 @pytest.mark.cuda

@@ -526,3 +526,142 @@ def test_every_jax_module_has_a_counterpart():
             missing.append(rel)
     assert not missing, missing
     assert all((PACKAGE / v).exists() for v in RENAMED.values())
+
+
+# Public members of the JAX package's classes that the port's counterparts
+# do not carry, each with the reason. Everything else a JAX class offers
+# (methods, properties, dataclass fields) its counterpart offers too.
+_KEY = ("the PRNG key a JAX state carries; the port's state draws from its "
+        "torch.Generator (``gen``)")
+_FLAX = ("flax.linen.Module's own machinery; the port's torch.nn.Module "
+         "holds its parameters itself")
+_FLAX_NAMES = ("apply", "bind", "clone", "copy", "get_variable", "has_rng",
+               "has_variable", "init", "init_with_output", "is_initializing",
+               "is_mutable_collection", "lazy_init", "make_rng",
+               "module_paths", "name", "param", "parent", "path", "perturb",
+               "put_variable", "scope", "setup", "sow", "tabulate", "unbind",
+               "variable", "variables")
+MEMBERS_NOT_PORTED = {
+    "envs/hopper_trajectory.py:HopperEnvState": {"key": _KEY},
+    "envs/hopper_velocity.py:HopperVelEnvState": {"key": _KEY},
+    "envs/legged_robot_velocity.py:VelocityEnvState": {"key": _KEY},
+    "envs/legged_robot_trajectory.py:TrajectoryEnvState": {"key": _KEY},
+    "envs/rom_tracking.py:RomTrackingEnvState": {"key": _KEY},
+    "sim/rom_sim.py:RomSimState": {"key": _KEY},
+    "trajgen/generator.py:TrajGenState": {"key": _KEY},
+    "rl/ppo.py:TrainState": {"key": _KEY},
+    "envs/hopper_velocity.py:HopperVelocityEnv": {
+        "curriculum": "a dummy field, always None (the flat velocity task "
+                      "has no curriculum)"},
+    "envs/legged_robot_velocity.py:LeggedRobotVelocityEnv": {
+        "obs_scales": "a dummy field: the observation scales are applied "
+                      "inline, block by block"},
+    "envs/legged_robot_trajectory.py:LeggedRobotTrajectoryEnv": {
+        "obs_scales": "the velocity env's dummy field, inherited"},
+    "rl/networks.py:ActorCritic": dict.fromkeys(_FLAX_NAMES, _FLAX),
+    "rl/networks.py:ActorCriticRecurrent": dict.fromkeys(_FLAX_NAMES, _FLAX),
+}
+# JAX classes with no counterpart class, and why.
+CLASSES_NOT_PORTED = {
+    "rl/networks.py:MLPBody": "a flax module of the actor's and critic's "
+                              "layers; the port builds torch.nn.Sequential "
+                              "stacks (``rl/networks.mlp``)",
+}
+
+
+def _instance_members(name):
+    """The attributes of a small instance, for port classes that set
+    their fields in ``__init__`` (torch modules) rather than as dataclass
+    fields; None for the others."""
+    from legged_gym_dev_tpu_torch.rl.networks import (
+        ActorCritic,
+        ActorCriticRecurrent,
+    )
+    from legged_gym_dev_tpu_torch.tube.models import MLP
+
+    make = {
+        "rl/networks.py:ActorCritic": lambda: ActorCritic(3, 2, (4,), (4,)),
+        "rl/networks.py:ActorCriticRecurrent": lambda: ActorCriticRecurrent(
+            3, 2, rnn_hidden_size=4, actor_hidden_dims=(4,),
+            critic_hidden_dims=(4,)),
+        "tube/models.py:MLP": lambda: MLP.create(
+            torch.Generator().manual_seed(0), 3, 1, num_units=4),
+    }.get(name)
+    return None if make is None else set(dir(make()))
+
+
+def _public_members(cls):
+    import dataclasses
+
+    names = {n for n in dir(cls) if not n.startswith("_")}
+    if dataclasses.is_dataclass(cls):
+        names |= {f.name for f in dataclasses.fields(cls)}
+    return names
+
+
+JAX_MODULES = sorted(
+    p.relative_to(ROOT / "legged_gym_dev_tpu").as_posix()
+    for p in (ROOT / "legged_gym_dev_tpu").rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_port_classes_carry_every_jax_member(rel):
+    """Each class a JAX module defines has its counterpart class in the
+    port's module, with every public method, property and dataclass field
+    of the JAX class, or the attribute on a small instance where the port
+    class sets it in ``__init__``; ``MEMBERS_NOT_PORTED`` and
+    ``CLASSES_NOT_PORTED`` name the exceptions."""
+    import dataclasses
+    import importlib
+    import inspect
+
+    def module(pkg, path):
+        return importlib.import_module(
+            pkg + "." + path[:-3].replace("/", ".").removesuffix(
+                ".__init__"))
+
+    jax_mod = module("legged_gym_dev_tpu", rel)
+    port_mod = module("legged_gym_dev_tpu_torch", RENAMED.get(rel, rel))
+    gaps = []
+    for cname, cls in sorted(vars(jax_mod).items()):
+        if not inspect.isclass(cls) or cls.__module__ != jax_mod.__name__:
+            continue
+        key = f"{rel}:{cname}"
+        ours = getattr(port_mod, cname, None)
+        if key in CLASSES_NOT_PORTED:
+            continue
+        if not inspect.isclass(ours):
+            gaps.append(f"{cname}: no class")
+            continue
+        have = _public_members(ours)
+        fields = (dataclasses.is_dataclass(cls)
+                  and not dataclasses.is_dataclass(ours))
+        inst = _instance_members(key)
+        if fields and inst is None:
+            gaps.append(f"{cname}: no instance to read its fields from")
+        have |= inst or set()
+        missing = (_public_members(cls) - have
+                   - set(MEMBERS_NOT_PORTED.get(key, ())))
+        if missing:
+            gaps.append(f"{cname}: {sorted(missing)}")
+    assert not gaps, f"{rel}: {gaps}"
+
+
+def test_member_allow_list_names_jax_members():
+    """Each exception names a class of the JAX package and, for members,
+    public members of it, with a reason; a class named as not ported has
+    no counterpart."""
+    import importlib
+
+    for key, members in {**MEMBERS_NOT_PORTED,
+                         **{k: {} for k in CLASSES_NOT_PORTED}}.items():
+        rel, cname = key.split(":")
+        mod = importlib.import_module(
+            "legged_gym_dev_tpu." + rel[:-3].replace("/", "."))
+        cls = getattr(mod, cname)
+        assert set(members) <= _public_members(cls), key
+        assert all(isinstance(r, str) and r for r in members.values())
+        if key in CLASSES_NOT_PORTED:
+            port = importlib.import_module(
+                "legged_gym_dev_tpu_torch." + rel[:-3].replace("/", "."))
+            assert not hasattr(port, cname) and CLASSES_NOT_PORTED[key]
