@@ -121,7 +121,11 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    (``configs/rl/default.yaml``) and ``anymal_c_rough``
    (``configs/rl/anymal_c_rough.yaml``): learning
    env-steps/s, the rollout/update split, and on rough terrain the plain
-   substep's share of an env step; then K3 against its plain version on
+   substep's share of an env step; ``[robots eval]``
+   ``evaluate_velocity_tracking`` of anymal_c_velocity's learned policy
+   at B=4096 for ``ROBOT_EVAL``'s 100 steps (settle 20): the four
+   statistics finite and in range, exactly 400 K3 launches, its wall;
+   then K3 against its plain version on
    one random step of A1, Cassie, the 10-joint biped and the chains of 1,
    6, 16 and 24 joints, with its time alone and its bound (every K3
    instance is built at the start, one ``nvcc`` each, all at once);
@@ -145,9 +149,10 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    the 12-joint robot, within 1e-4) and ``[array]`` (the array-form staged
    solver against the entry form, l1, B=256, N=50, 20x10: feasible >=
    0.98, co-feasible plans within 2e-3 on >= 90%);
-15. mesh phase (main path of the mesh slice, on a mesh of 4 shards of
-   the one card, ``make_mesh(4, devices=[card] * 4)``, and over every card
-   where there are several): ``[mesh substep]`` K3s, the sharded route
+15. mesh phase (main path of the mesh slice, in a process of its own
+   beside the robots and play phases, its launches counted there; on a
+   mesh of 4 shards of the one card, ``make_mesh(4, devices=[card] * 4)``,
+   and over every card where there are several): ``[mesh substep]`` K3s, the sharded route
    (``substep_sharded``, the shard kernel ``substep_shard_kernel`` on each
    shard), on the quadruped at B=4096 with per-env DR rows against its
    plain version shard by shard (max relative error <= TOL_REL) and one
@@ -1313,6 +1318,9 @@ ROBOT_STEPS = 8
 ROBOT_LEARN = {"anymal_c_velocity": ("configs/rl/default.yaml", 2),
                "cassie_velocity": ("configs/rl/default.yaml", 2),
                "anymal_c_rough": ("configs/rl/anymal_c_rough.yaml", 2)}
+# evaluate_velocity_tracking of a learned policy: task -> (env steps,
+# settle steps), cut from the evaluation's 500 and 50
+ROBOT_EVAL = {"anymal_c_velocity": (100, 20)}
 # K3's single-step checks beyond the substep phase's robots: A1 and Cassie
 # (nj=12 in other topologies), the Adam stand-in (nj=10) and chains
 K3_ROBOTS = {"a1": 12, "cassie": 12, "biped10": 10, "chain1": 1,
@@ -1475,13 +1483,53 @@ def robot_learn(task, urdf, work, dev):
                    plain_substep_share=min(sub_ms) / min(step_ms),
                    plain_substep_aten_op_share=ops[0] / ops[1])
     print("[robots learn] " + json.dumps(rec))
-    return rec, by_nj
+    return rec, by_nj, runner
+
+
+def robot_eval(task, runner, dev):
+    """``evaluate_velocity_tracking`` of the runner's inference policy on
+    its env (B=4096), cut to ``ROBOT_EVAL``'s steps; K3's launches zeroed
+    just before and read just after, exactly one a substep."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.evaluation import (
+        evaluate_velocity_tracking,
+    )
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+
+    steps, settle = ROBOT_EVAL[task]
+    env = runner.env
+    policy = runner.get_inference_policy()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    stats = evaluate_velocity_tracking(env, policy, gen, steps=steps,
+                                       settle=settle)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_nj = sk.launches_by_nj()
+    want = steps * env.sim.decimation
+    check(sum(by_nj.values()) == want,
+          f"eval {task}: K3 launches {by_nj} != {want}")
+    check(np.isfinite(stats["track_err_m_s"])
+          and stats["track_err_m_s"] >= 0.0, f"eval {task}: {stats}")
+    for k in ("single_stance_frac", "single_stance_moving",
+              "done_rate_per_step"):
+        check(0.0 <= stats[k] <= 1.0, f"eval {task}: {k} = {stats[k]}")
+    rec = dict(task=task, batch=env.num_envs, steps=steps, settle=settle,
+               wall_s=wall, ms_per_env_step=1e3 * wall / steps,
+               k3_launches=by_nj, **stats)
+    print("[robots eval] " + json.dumps(rec))
+    return by_nj
 
 
 def robots_phase(dev):
     """The robots slice's main path: every newly registered task for
     ``ROBOT_STEPS`` env steps at B=4096, then the learn iterations of
-    anymal_c_velocity, cassie_velocity and anymal_c_rough; then K3 against
+    anymal_c_velocity, cassie_velocity and anymal_c_rough, the first
+    followed by the velocity-tracking evaluation; then K3 against
     its plain version on a single step of each K3_ROBOTS robot. Returns
     the K3 records by robot and the main path's launches by joint
     count."""
@@ -1491,11 +1539,20 @@ def robots_phase(dev):
         rec = robot_rollout(task, files[const], dev)
         for nj, n in rec["k3_launches_by_nj"].items():
             launches[nj] = launches.get(nj, 0) + n
+    evals = {}
     for task in ROBOT_LEARN:
-        _, by_nj = robot_learn(task, files[ROBOT_TASKS[task][0]], work, dev)
+        _, by_nj, runner = robot_learn(task, files[ROBOT_TASKS[task][0]],
+                                       work, dev)
         for nj, n in by_nj.items():
             launches[nj] = launches.get(nj, 0) + n
+        if task in ROBOT_EVAL:
+            evals[task] = robot_eval(task, runner, dev)
     print(f"[launches] robots path by nj: {json.dumps(launches)}")
+    for by_nj in evals.values():
+        for nj, n in by_nj.items():
+            launches[nj] = launches.get(nj, 0) + n
+    print(f"[launches] robots path and evaluation by nj: "
+          f"{json.dumps(launches)}")
     return {robot: substep_record(robot, dev, tag="robots k3")
             for robot in K3_ROBOTS}, launches
 
@@ -3212,7 +3269,7 @@ def mesh_phase(dev):
     runs."""
     import shutil
 
-    work = ROOT / "build" / "chip_smoke_mesh"
+    work = ROOT / "build" / "chip_smoke_mesh_runs"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     t0 = time.perf_counter()
@@ -3780,7 +3837,16 @@ def routes_child(dev):
                 solver=routes_solver(dev))
 
 
-CHILDREN = {"scenarios": scenarios_child, "routes": routes_child}
+def mesh_child(dev):
+    """The mesh phase in a process of its own, beside the parent's robots
+    and play phases: K3s's record and the phase's launches, counted in
+    this process where the kernels launch."""
+    rec, launches = mesh_phase(dev)
+    return dict(substep_sharded=rec, launches=launches)
+
+
+CHILDREN = {"scenarios": scenarios_child, "routes": routes_child,
+            "mesh": mesh_child}
 CHILD_ENV = {"routes": ROUTES_ENV}
 
 
@@ -4143,10 +4209,11 @@ def run_phases(phases, running):
             main_launches[k] += v - by_b[k].get(10, 0)
             main_launches[f"{k}_b10"] = by_b[k].get(10, 0)
     # per-scenario ROMs and nets (the shared form timed in turns with
-    # them) and the kernel routes against the plain ones: processes of
-    # their own beside the robots and play phases
+    # them), the kernel routes against the plain ones and the mesh phase:
+    # processes of their own beside the robots and play phases
     children = {kind: start_child(kind, running)
-                for kind in ("scenarios", "routes") if kind in phases}
+                for kind in ("scenarios", "routes", "mesh")
+                if kind in phases}
     t_overlap = time.perf_counter()
     if "robots" in phases:
         k3, by_nj = robots_phase(dev)
@@ -4177,15 +4244,17 @@ def run_phases(phases, running):
             main_launches[k] += v
     if "routes" in children:
         finish_child("routes", running, children["routes"])
-    if "mjcf" in phases:
-        mjcf_phase()
-    if "mesh" in phases:
-        krec["substep_sharded"], mesh_launches = mesh_phase(dev)
+    if "mesh" in children:
+        mesh = finish_child("mesh", running, children["mesh"])
+        krec["substep_sharded"] = mesh["substep_sharded"]
+        mesh_launches = mesh["launches"]
         for k, v in mesh_launches.items():
             main_launches[k] = main_launches.get(k, 0) + v
         check(mesh_launches["substep_sharded"] > 0
               and mesh_launches["bt_solve"] > 0,
               "mesh path: no substep_sharded or bt_solve launch")
+    if "mjcf" in phases:
+        mjcf_phase()
     print(f"[launches] main path: {json.dumps(main_launches)}")
     if "ref" in phases:
         reference_check(dev)
