@@ -225,10 +225,22 @@ Runs on one CUDA card (an H100 for the recorded numbers):
    and on the kernels: feasible >= 0.98 each, the co-feasible plans
    within 2e-3 on >= 90% (the ``[array]`` bars); its launches compare
    kernels with plain routes and are not the main path's;
-19. mjcf phase: ``build_mjcf`` of every test robot of
+19. tools phase, the JAX system's profiling and schedule tools
+   (``scripts/torch_profile_*.py``, ``torch_measure_imbalance.py``,
+   ``torch_sweep_schedule.py``, ``torch_tune_loop_schedule.py``,
+   ``torch_compile_time_quadruped.py``): a process of its own (``--child
+   tools``) beside the robots and play phases that calls each tool's
+   function on the card at B=256 with one timed rep, 2x2 solve schedules,
+   loops of one tick, 2 shards and 2 of the sweep's schedules (the test
+   robots through ``urdf_path``; the cold K3 build of
+   ``compile_time_quadruped`` first): no exception, every number finite,
+   each kernel it launches more than 0 times and K3 (and
+   ``profile_nn_tube``'s solver kernels) exactly as its arguments give;
+   its launches count on the main path;
+20. mjcf phase: ``build_mjcf`` of every test robot of
    ``tests/torch_robot_cases.py`` (robots and chains) parsed with
    ``xml.etree``, its bodies and joints the model's;
-20. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
+21. prints one ``{"kernels": [...]}`` line (the b=10 instances and each K3
    joint count on rows of their own, the instances no robot runs measured
    on their chains in the substep phase; ``bt_solve``'s row counts the
    other block sizes' launches; ``substep_sharded``, the shard kernel, a
@@ -242,11 +254,11 @@ Usage: ``python3 chip_smoke.py`` (all phases), or
 ``python3 chip_smoke.py --phases kernels,l1`` to run a subset while
 debugging (phases: kernels, l1, nn, loop, ref, profile, substep, rl,
 train, train_rnn, tube, plan, robots, play, mesh, flagship, scenarios,
-routes, mjcf; ``--phases plan`` is the planning slice alone, ``--phases
-robots`` the robots slice, ``--phases play`` the play slice, ``--phases
-mesh`` the mesh slice, ``--phases flagship`` the two flagship pipelines,
-``--phases scenarios,mjcf`` the scenarios slice, ``--phases routes`` the
-route switches).
+routes, tools, mjcf; ``--phases plan`` is the planning slice alone,
+``--phases robots`` the robots slice, ``--phases play`` the play slice,
+``--phases mesh`` the mesh slice, ``--phases flagship`` the two flagship
+pipelines, ``--phases scenarios,mjcf`` the scenarios slice, ``--phases
+routes`` the route switches, ``--phases tools`` the tools).
 """
 import argparse
 import concurrent.futures
@@ -262,7 +274,7 @@ import numpy as np
 
 PHASES = ("kernels", "l1", "nn", "loop", "ref", "profile", "substep", "rl",
           "train", "train_rnn", "tube", "plan", "robots", "play", "mesh",
-          "flagship", "scenarios", "routes", "mjcf")
+          "flagship", "scenarios", "routes", "tools", "mjcf")
 N, H_REV = 50, 10
 B_L1, B_NN = 2048, 1024
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -3452,6 +3464,9 @@ def _numbers(tree, path=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _numbers(v, f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _numbers(v, f"{path}[{i}]")
     elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
         yield path, tree
 
@@ -3837,6 +3852,127 @@ def routes_child(dev):
                 solver=routes_solver(dev))
 
 
+# ---------------------------------------------------------------------------
+# Tools: the JAX system's profiling and schedule tools, small, on the card
+# ---------------------------------------------------------------------------
+
+TOOLS_B = 256          # batch of every tool here (the JAX defaults 1024-4096)
+TOOLS_REPS = 1         # timed reps of every timing
+TOOLS_SCHEDULE = (2, 2)   # outer x inner of every solve and loop re-solve
+
+
+def tool(name):
+    """``scripts/torch_<name>.py``, imported from the scripts directory."""
+    import importlib
+
+    scripts = str(ROOT / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(f"torch_{name}")
+
+
+def tools_cases(dev):
+    """(tool, call, expected launches) of each tool at the phase's size;
+    an expected count is exact where the tool's arguments fix it, else
+    None (more than 0). Keys of the counts: bt_solve, bt_factor,
+    bt_msolve, substep (nj=12) and substep_nj4."""
+    from legged_gym_dev_tpu_torch.solver import ALConfig
+
+    rc = robot_cases()
+    B, r = TOOLS_B, TOOLS_REPS
+    outer, inner = TOOLS_SCHEDULE
+    small = ALConfig(outer_iters=outer, inner_iters=inner, linsolve="pallas")
+    first = ALConfig(outer_iters=outer, inner_iters=inner,
+                     nn_basis_refresh=3, linsolve="pallas")
+    quad = {"urdf_path": rc.QUADRUPED_URDF}
+    iters, k = outer * inner, 2
+    T = 24                              # PPOConfig().num_steps
+    solves = {"bt_solve": None}
+    loops = {"bt_solve": None, "bt_factor": None, "bt_msolve": None}
+    return [
+        # the cold build first: no K3 library is loaded in this process yet
+        ("compile_time_quadruped",
+         lambda: tool("compile_time_quadruped").compile_time(
+             "ppo", B=B, overrides=quad, device=dev),
+         lambda out: {"substep": T * out["decimation"]}),
+        ("profile_solver", lambda: tool("profile_solver").profile_solver(
+            B=B, cfg=small, reps=r, device=dev), lambda out: solves),
+        ("profile_staged", lambda: tool("profile_staged").profile_staged(
+            B=B, cfg=small, reps=r, device=dev), lambda out: solves),
+        ("profile_nn_tube", lambda: tool("profile_nn_tube").profile_nn_tube(
+            B=B, iters=iters, reps=r, jac_ad=True, chol_xla=True,
+            device=dev),
+         lambda out: dict.fromkeys(("bt_solve", "bt_factor", "bt_msolve"),
+                                   (1 + r) * (iters + 1))),
+        ("profile_tick", lambda: tool("profile_tick").profile_tick(
+            B=B, H=1, reps=r, cfg_first=first, device=dev),
+         lambda out: loops),
+        ("profile_sim", lambda: tool("profile_sim").profile_sim(
+            B=B, reps=r, env_reps=r,
+            overrides={"urdf_path": rc.HOPPER_URDF}, device=dev),
+         lambda out: {"substep_nj4": (1 + r) + (1 + r) * out["decimation"]}),
+        ("profile_quadruped",
+         lambda: tool("profile_quadruped").profile_quadruped(
+             B=B, reps=r, learn_reps=r, overrides=quad, device=dev),
+         lambda out: {"substep": (1 + r) * (1 + 2 * out["decimation"])
+                      + (1 + r) * out["num_steps"] * out["decimation"]}),
+        ("profile_rough", lambda: tool("profile_rough").profile_rough(
+            B=B, k=k, reps=r, overrides=quad, device=dev),
+         lambda out: {"substep": (1 + r) * k * out["decimation"]}),
+        ("measure_imbalance",
+         lambda: tool("measure_imbalance").measure_imbalance(
+             B=B, shards=2, cfg=small, reps=r, device=dev),
+         lambda out: solves),
+        ("sweep_schedule", lambda: tool("sweep_schedule").sweep_schedule(
+            B=B, default=(outer, inner, 10), schedules=((outer, 1, 8),
+                                                         (1, inner, 8)),
+            reps=r, device=dev), lambda out: solves),
+        ("tune_loop_schedule",
+         lambda: tool("tune_loop_schedule").tune_loop_schedule(
+             B=B, H=1, combos=((5, 6, 3), (4, 4, 4)), first=TOOLS_SCHEDULE,
+             reps=r, device=dev), lambda out: loops),
+    ]
+
+
+def tools_child(dev):
+    """``[tools]``: each of the eleven tools' functions on the card at
+    ``TOOLS_B`` with one timed rep, 4-step solve schedules, loops of one
+    tick, 2 shards and 2 of the sweep's schedules, in a process of its own
+    beside the robots and play phases: no exception, every number it
+    returns finite, each kernel it launches counted and more than 0 (K3
+    and, in ``profile_nn_tube``, the solver kernels exactly as its
+    arguments give). Returns the launches summed over the tools."""
+    import torch
+
+    from legged_gym_dev_tpu_torch.ops import block_tridiag_kernels as btk
+    from legged_gym_dev_tpu_torch.ops import substep_kernels as sk
+
+    total = dict.fromkeys(("bt_solve", "bt_factor", "bt_msolve", "substep",
+                           "substep_nj4"), 0)
+    recs = {}
+    for name, call, expected in tools_cases(dev):
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {**btk.launches(), "substep": sk.launches_by_nj().get(12, 0),
+               "substep_nj4": sk.launches_by_nj().get(4, 0)}
+        want = expected(out)
+        print(f"[tools] {name}: {wall:.1f} s, launches {json.dumps(got)}")
+        bad = [p for p, v in _numbers(out) if not np.isfinite(v)]
+        check(not bad, f"[tools] {name}: non-finite {bad}")
+        for kname, n in want.items():
+            check(got[kname] > 0 if n is None else got[kname] == n,
+                  f"[tools] {name}: {kname} launches {got[kname]}, "
+                  f"expected {'> 0' if n is None else n}")
+        others = {kn: v for kn, v in got.items() if kn not in want and v}
+        check(not others, f"[tools] {name}: launches {others} not expected")
+        for kname in total:
+            total[kname] += got[kname]
+        recs[name] = dict(wall_s=wall, launches=got)
+    return dict(tools=recs, launches=total)
+
+
 def mesh_child(dev):
     """The mesh phase in a process of its own, beside the parent's robots
     and play phases: K3s's record and the phase's launches, counted in
@@ -3846,7 +3982,7 @@ def mesh_child(dev):
 
 
 CHILDREN = {"scenarios": scenarios_child, "routes": routes_child,
-            "mesh": mesh_child}
+            "mesh": mesh_child, "tools": tools_child}
 CHILD_ENV = {"routes": ROUTES_ENV}
 
 
@@ -4212,7 +4348,7 @@ def run_phases(phases, running):
     # them), the kernel routes against the plain ones and the mesh phase:
     # processes of their own beside the robots and play phases
     children = {kind: start_child(kind, running)
-                for kind in ("scenarios", "routes", "mesh")
+                for kind in ("scenarios", "routes", "mesh", "tools")
                 if kind in phases}
     t_overlap = time.perf_counter()
     if "robots" in phases:
@@ -4253,6 +4389,11 @@ def run_phases(phases, running):
         check(mesh_launches["substep_sharded"] > 0
               and mesh_launches["bt_solve"] > 0,
               "mesh path: no substep_sharded or bt_solve launch")
+    if "tools" in children:
+        tools = finish_child("tools", running, children["tools"])
+        for k, v in tools["launches"].items():
+            main_launches[k] = main_launches.get(k, 0) + v
+        print(f"[launches] tools path: {json.dumps(tools['launches'])}")
     if "mjcf" in phases:
         mjcf_phase()
     print(f"[launches] main path: {json.dumps(main_launches)}")
